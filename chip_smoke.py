@@ -7,19 +7,31 @@ Phases, each of which fails the run:
 1. Build every kernel of csrc/ with nvcc for sm_90a, from this checkout.
 2. Kernels: K6f/K6b (csrc/softargmax.cu) against their plain PyTorch
    version on seeded inputs at the NRS path's shape, [B,3,192,192], p = 20,
-   B = 1 and 2, T = 0.05 and 1e-4, with their times.
-3. Slice: the NRS self-supervised train step of configs/train_omnicam.yaml
+   B = 1 and 2, T = 0.05 and 1e-4, with their times; warp_fwd/warp_bwd
+   (csrc/warp.cu) against theirs on coordinates that leave the image on
+   every side, exact integer coordinates and -1/+1, both padding modes,
+   B = 1 and 8, C = 3 and 1, with d image on, and their times at the four
+   shapes of the flagship loss beside F.grid_sample's.
+3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
    random weights from seed 0) on synthetic samples: generic_project through
    the kernels against the plain version on the first step's real tensors;
    model_loss on the card against the CPU (plain version) at 96x96; then 5
    train steps at progress 0.5 with the launch counters read around them.
+4. Flagship slice: the train step of configs/train_kitti.yaml (SelfSupModel,
+   PackNet01-1A + PoseNet, 192x640, batch 4, 4 scales, automask, device
+   jitter, the training flip; random weights from seed 0) on synthetic
+   samples with intrinsics: view_synthesis through the warp kernels against
+   the plain version on the first step's real depths and poses; model_loss
+   on the card against the CPU at 64x96; then 5 train steps with the launch
+   counters read around them.
 
-Float32 throughout, TF32 off (the omnicam config's bfloat16 policy is not
-ported yet). Needs a CUDA device; exits non-zero, printing no result,
-without one. The last line is {"ok": true, "device": {...}}; the line
-before it lists each kernel with its launches on the train steps, error
-against the plain version, time, plain time and bound.
+Float32 throughout, TF32 off (the configs' bfloat16 policy is not ported
+yet). Needs a CUDA device; exits non-zero, printing no result, without one.
+The last line is {"ok": true, "device": {...}}; the line before it lists
+each kernel with its launches on its train path's steps, error against the
+plain version, time, plain time, bound and, where one PyTorch call computes
+the same function, that call's time.
 """
 
 import json
@@ -51,6 +63,17 @@ FWD_OPS, BWD_OPS = 15, 12
 TOL_PX = {0.05: 2e-3, 1e-4: 0.1}
 TOL_GRAD = {0.05: 1e-3, 1e-4: 5e-2}
 TOL_LOSS_CPU = 1e-3
+# Warp kernels vs plain version: image values in [0, 1). The forward differs
+# only by the rounding of fused multiply-adds (measured 1.2e-7). Gradients
+# are held relative to their largest magnitude: d coords sums C products per
+# pixel in another order (measured 2e-7); d image is summed with atomics, in
+# an order that changes from run to run (measured 3e-6).
+TOL_WARP_FWD = 1e-5
+TOL_WARP_GRAD = 1e-4
+# FP32 operations per output pixel of the warp, for the bound: coordinates
+# and weights ~20, then 8 (forward) or 16 (backward) per channel.
+WARP_OPS = {"fwd": (20, 8), "bwd": (24, 16)}
+KITTI_SCALES = 4
 
 
 def log(msg):
@@ -64,20 +87,34 @@ def gpu_name_and_power():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after warm-up."""
+_blocker = []
+
+
+def time_ms(fn, reps=20, rounds=5, warmup=3):
+    """Device time of one ``fn()``, in ms: the median over ``rounds`` of a
+    CUDA-event timing of ``reps`` calls enqueued back to back, divided by
+    ``reps``. Before each round a large matrix product (~25 ms) keeps the
+    card busy while the host enqueues the calls, so that the time between
+    the events is the device's and not the host's launch overhead (which is
+    several times a small kernel's own time). The inputs are the same in
+    every call, so they are read from a warm L2 where they fit."""
     import torch
 
+    if not _blocker:
+        _blocker.append(torch.empty((8192, 8192), device="cuda").normal_())
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.mm(_blocker[0], _blocker[0])
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -227,14 +264,10 @@ def cpu_reference(model, cfg, device):
 
 
 def slice_phase(device, cfg):
-    import numpy as np
-    import torch
-
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
     from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
     from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
     from packnet_sfm_tpu_torch.geometry.camera_generic import projection_temperature
-    from packnet_sfm_tpu_torch.ops import softargmax as sa
 
     H, W = cfg.datasets.augmentation.image_shape
     log(f"config: {cfg.model.name}, {cfg.model.depth_net.name}-{cfg.model.depth_net.version} "
@@ -255,30 +288,290 @@ def slice_phase(device, cfg):
     cpu_reference(model, cfg, device)
 
     acc = zero_metrics(device)
+    counts = run_steps(step, acc, batches, PROGRESS)
+    # two contexts at one scale: one projection and one warp each, per step
+    want = {"softargmax_fwd": 2 * STEPS, "softargmax_bwd": 2 * STEPS,
+            "warp_fwd": 2 * STEPS, "warp_bwd": 2 * STEPS}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return counts, proj_err
+
+
+def run_steps(step, acc, batches, progress):
+    """Drive the train steps with every launch counter set to 0 just before
+    and read just after; returns the counts."""
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+    from packnet_sfm_tpu_torch.ops import warp
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sa.reset_launch_counts()
+    warp.reset_launch_counts()
     losses, step_ms, prev = [], [], 0.0
     for b in batches:
         t0 = time.perf_counter()
-        acc = step(acc, b, progress=PROGRESS)
+        acc = step(acc, b, progress=progress)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         cum = acc["loss"][0].item()
         losses.append(cum - prev)
         prev = cum
-    counts = dict(sa.launch_counts)
+    counts = {**sa.launch_counts, **warp.launch_counts}
     peak = torch.cuda.max_memory_allocated()
     log("losses: " + ", ".join(f"{x:.6f}" for x in losses))
     log("step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
-        + f"; median of steps 2-{STEPS}: {statistics.median(step_ms[1:]):.2f} ms")
+        + f"; median of steps 2-{len(batches)}: {statistics.median(step_ms[1:]):.2f} ms")
     log(f"peak memory allocated: {peak / 2**20:.1f} MiB; launches: {counts}")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    want = {"softargmax_fwd": 2 * STEPS, "softargmax_bwd": 2 * STEPS}
+    return counts
+
+
+def kitti_config():
+    from packnet_sfm_tpu_torch.core.config import KITTI, config_from_dict, parse_train_config
+
+    return parse_train_config(config_from_dict(KITTI))
+
+
+def path_shapes(cfg):
+    """[(B, Hs, Ws)] of the flagship loss's warps: the contexts stacked on
+    the batch, at each of the scales."""
+    h, w = cfg.datasets.augmentation.image_shape
+    b = 2 * cfg.datasets.train.batch_size
+    return [(b, h >> i, w >> i) for i in range(KITTI_SCALES)]
+
+
+def warp_inputs(gen, b, h, w, c, ho, wo, device, spread):
+    """Image, coordinates and cotangent. ``spread`` > 1 sends coordinates
+    out of the image on every side; the first pixels of the first row are
+    exact integer positions, the corners -1/+1 and far-away points."""
+    import torch
+
+    image = torch.rand((b, h, w, c), generator=gen)
+    coords = (torch.rand((b, ho, wo, 2), generator=gen) * 2 - 1) * spread
+    special = torch.tensor([[-1., -1.], [1., 1.], [-1., 1.], [1., -1.], [0., 0.],
+                            [2. * 3 / (w - 1) - 1, 2. * 2 / (h - 1) - 1],
+                            [5., 5.], [-5., 0.], [0.5, -7.]])
+    n = min(len(special), wo)
+    coords[0, 0, :n] = special[:n]
+    grad = torch.randn((b, ho, wo, c), generator=gen)
+    return image.to(device), coords.to(device), grad.to(device)
+
+
+def smooth_coords(gen, b, h, w, device):
+    """Coordinates like a view-synthesis warp's: the identity grid plus a
+    shift of a few pixels, leaving the image at its edges."""
+    import torch
+
+    ys = torch.linspace(-1, 1, h)[None, :, None].expand(b, h, w)
+    xs = torch.linspace(-1, 1, w)[None, None, :].expand(b, h, w)
+    shift = (torch.rand((b, 1, 1, 2), generator=gen) - 0.5) * 0.1
+    return (torch.stack([xs, ys], dim=-1) + shift).contiguous().to(device)
+
+
+def warp_kernel_phase(device, shapes):
+    """warp_fwd/warp_bwd against the plain version, then their times at the
+    flagship loss's shapes beside the plain version's and F.grid_sample's."""
+    import torch
+    import torch.nn.functional as F
+
+    from packnet_sfm_tpu_torch.ops import warp
+
+    err = {"fwd": 0.0, "bwd": 0.0}
+    gen = torch.Generator().manual_seed(0)
+    cases = [(b, 48, 160, c, ho, wo, pad)
+             for b in (1, 8) for c in (3, 1) for (ho, wo) in ((48, 160), (37, 75))
+             for pad in ("zeros", "border")]
+    cases.append(shapes[0] + (3,) + shapes[0][1:] + ("zeros",))
+    for b, h, w, c, ho, wo, pad in cases:
+        image, coords, grad = warp_inputs(gen, b, h, w, c, ho, wo, device, spread=1.3)
+        out = warp.warp_fwd_cuda(image, coords, pad)
+        d_image, d_coords = warp.warp_bwd_cuda(image, coords, grad, pad, need_image_grad=True)
+        _, d_coords_only = warp.warp_bwd_cuda(image, coords, grad, pad)
+        torch.cuda.synchronize()
+        ip, cp = image.clone().requires_grad_(), coords.clone().requires_grad_()
+        out_p = warp.grid_sample_plain(ip, cp, pad)
+        (out_p * grad).sum().backward()
+        e_fwd = (out - out_p).abs().max().item()
+        e_dc = (d_coords - cp.grad).abs().max().item()
+        e_di = (d_image - ip.grad).abs().max().item()
+        rel = max(e_dc / cp.grad.abs().max().item(), e_di / ip.grad.abs().max().item())
+        log(f"warp B={b} {h}x{w}x{c} -> {ho}x{wo} {pad}: max |d out| {e_fwd:.3e} (tolerance "
+            f"{TOL_WARP_FWD:g}); max |d grad| d_coords {e_dc:.3e} d_image {e_di:.3e}, "
+            f"{rel:.3e} of the largest (tolerance {TOL_WARP_GRAD:g})")
+        if not (e_fwd <= TOL_WARP_FWD and rel <= TOL_WARP_GRAD
+                and torch.equal(d_coords, d_coords_only)):
+            raise AssertionError("warp kernel disagrees with its plain version")
+        if not (torch.isfinite(out).all() and torch.isfinite(d_coords).all()
+                and torch.isfinite(d_image).all()):
+            raise AssertionError("non-finite warp kernel output")
+        err["fwd"] = max(err["fwd"], e_fwd)
+        err["bwd"] = max(err["bwd"], e_dc, e_di)
+
+    # times at the main path's shapes: zeros padding, C = 3, image and output
+    # of one size, the image is data (no d image)
+    gen = torch.Generator().manual_seed(1)
+    rows = {"fwd": [], "bwd": []}
+    for b, h, w in shapes:
+        image = torch.rand((b, h, w, 3), generator=gen).to(device)
+        coords = smooth_coords(gen, b, h, w, device)
+        grad = torch.randn((b, h, w, 3), generator=gen).to(device)
+        nchw = image.permute(0, 3, 1, 2)
+
+        def library(c):
+            return F.grid_sample(nchw, c, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        k_fwd = time_ms(lambda: warp.warp_fwd_cuda(image, coords))
+        k_bwd = time_ms(lambda: warp.warp_bwd_cuda(image, coords, grad))
+        with torch.no_grad():
+            p_fwd = time_ms(lambda: warp.grid_sample_plain(image, coords))
+            l_fwd = time_ms(lambda: library(coords))
+        cp = coords.clone().requires_grad_()
+        out_p = (warp.grid_sample_plain(image, cp) * grad).sum()
+        p_bwd = time_ms(lambda: torch.autograd.grad(out_p, cp, retain_graph=True))
+        cl = coords.clone().requires_grad_()
+        out_l = (library(cl) * grad.permute(0, 3, 1, 2)).sum()
+        l_bwd = time_ms(lambda: torch.autograd.grad(out_l, cl, retain_graph=True))
+        px = b * h * w
+        # forward: coords 8 B, image 12 B, output 12 B per pixel; the
+        # backward reads the cotangent (12 B) and writes d coords (8 B) too
+        bounds = {"fwd": bound_ms(px * (8 + 12 + 12), px * (WARP_OPS["fwd"][0] + 3 * WARP_OPS["fwd"][1])),
+                  "bwd": bound_ms(px * (8 + 12 + 12 + 8), px * (WARP_OPS["bwd"][0] + 3 * WARP_OPS["bwd"][1]))}
+        for key, k, pl, lib in (("fwd", k_fwd, p_fwd, l_fwd), ("bwd", k_bwd, p_bwd, l_bwd)):
+            rows[key].append(dict(shape=[b, h, w, 3], ms=k, plain_ms=pl,
+                                  bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                                  library_ms=lib))
+            log(f"warp_{key} at [{b},{h},{w},3]: kernel {k:.4f} ms, plain {pl:.3f}, "
+                f"F.grid_sample {lib:.4f}, bound {bounds[key][0]:.4f} ({bounds[key][1]})")
+    # the line's headline numbers are those of the finest scale; the other
+    # three scales go along under by_shape
+    return {f"warp_{key}": dict(max_abs_err=err[key], by_shape=rows[key],
+                                **{k: v for k, v in rows[key][0].items() if k != "shape"})
+            for key in ("fwd", "bwd")}
+
+
+def flagship_view_synthesis(model, batch, device):
+    """view_synthesis through the warp kernels vs the plain version, value
+    and d coords, on the first step's real depths and poses at every scale
+    (the model's state is untouched: GroupNorm keeps no statistics)."""
+    import torch
+
+    from packnet_sfm_tpu_torch.engine.train import prepare_train_batch
+    from packnet_sfm_tpu_torch.geometry.camera import (
+        Camera, project, reconstruct, scale_intrinsics)
+    from packnet_sfm_tpu_torch.losses.photometric import inv2depth
+    from packnet_sfm_tpu_torch.models.sfm import model_forward
+    from packnet_sfm_tpu_torch.ops import warp
+    from packnet_sfm_tpu_torch.ops.image import interpolate_image
+
+    worst_out, worst_rel = 0.0, 0.0
+    b = prepare_train_batch(batch, device)
+    with torch.no_grad():
+        out = model_forward(model, b, train=True)
+    full_w = b["rgb"].shape[2]
+    gen = torch.Generator().manual_seed(2)
+    for inv_depth in out["inv_depths"]:
+        hs, ws = inv_depth.shape[1:3]
+        K = scale_intrinsics(b["intrinsics"], ws / float(full_w))
+        for ref, pose in zip(b["rgb_context_original"], out["poses"]):
+            ref_s = interpolate_image(ref, (hs, ws))
+            world = reconstruct(Camera(K=K), inv2depth(inv_depth))
+            coords = project(Camera(K=K, Tcw=pose), world)
+            grad = torch.randn(ref_s.shape, generator=gen).to(device)
+            ck, cp = coords.clone().requires_grad_(), coords.clone().requires_grad_()
+            kern = warp.grid_sample(ref_s, ck)
+            plain = warp.grid_sample_plain(ref_s, cp)
+            (kern * grad).sum().backward()
+            (plain * grad).sum().backward()
+            if not (torch.isfinite(kern).all() and torch.isfinite(ck.grad).all()):
+                raise AssertionError("non-finite view synthesis")
+            worst_out = max(worst_out, (kern - plain).abs().max().item())
+            worst_rel = max(worst_rel, (ck.grad - cp.grad).abs().max().item()
+                            / cp.grad.abs().max().item())
+    log(f"view_synthesis on the first step's depths and poses, 4 scales x 2 contexts: kernel "
+        f"vs plain max |d out| {worst_out:.3e} (tolerance {TOL_WARP_FWD:g}), d coords "
+        f"{worst_rel:.3e} of the largest (tolerance {TOL_WARP_GRAD:g})")
+    if not (worst_out <= TOL_WARP_FWD and worst_rel <= TOL_WARP_GRAD):
+        raise AssertionError("view_synthesis through the kernels disagrees with plain")
+
+
+def flagship_cpu_reference(model, cfg, device):
+    """model_loss at 64x96, batch 2, on the card (kernels) and on the CPU
+    (plain version) with the same weights, jitter and flip draw."""
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.datasets.augmentations import draw_jitter_params
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset, collate_train_batch
+    from packnet_sfm_tpu_torch.engine.factory import setup_model
+    from packnet_sfm_tpu_torch.engine.train import prepare_train_batch
+    from packnet_sfm_tpu_torch.models.sfm import model_loss
+
+    ds = SyntheticSfmDataset(length=2, height=64, width=96, seed=7)
+    rng = np.random.default_rng(7)
+    jitter = [draw_jitter_params(cfg.datasets.augmentation.jittering, rng) for _ in range(2)]
+    batch = collate_train_batch([ds[0], ds[1]], jitter)
+    cpu_model = setup_model(cfg.model, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    losses = {}
+    for name, m, dev in (("card", model, device), ("cpu", cpu_model, "cpu")):
+        gen = torch.Generator().manual_seed(0)      # first draw 0.4963 < 0.5: flipped
+        with torch.no_grad():
+            losses[name] = model_loss(m, prepare_train_batch(batch, dev), generator=gen)[0].item()
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    log(f"model_loss 64x96 batch 2, flipped: card {losses['card']:.7f} cpu {losses['cpu']:.7f} "
+        f"rel {rel:.2e} (tolerance {TOL_LOSS_CPU:g})")
+    if not rel <= TOL_LOSS_CPU:
+        raise AssertionError("model_loss on the card disagrees with the CPU")
+
+
+def flagship_phase(device, cfg):
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.datasets.augmentations import draw_jitter_params
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset, collate_train_batch
+    from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
+    from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
+
+    H, W = cfg.datasets.augmentation.image_shape
+    bs = cfg.datasets.train.batch_size
+    loss = cfg.model.loss
+    log(f"config: {cfg.model.name}, {cfg.model.depth_net.name}-{cfg.model.depth_net.version} "
+        f"+ {cfg.model.pose_net.name}, {H}x{W}, batch {bs}, {loss.num_scales} scales, "
+        f"automask {loss.automask_loss}, reduce {loss.photometric_reduce_op}, flip_lr_prob "
+        f"{loss.flip_lr_prob}, jitter {tuple(cfg.datasets.augmentation.jittering)}; arch.dtype "
+        f"{cfg.arch.dtype} is not ported yet: this run trains float32")
+    ds = SyntheticSfmDataset(length=STEPS * bs, height=H, width=W, seed=0)
+    rng = np.random.default_rng(0)
+    batches = []
+    for i in range(STEPS):
+        samples = [ds[i * bs + j] for j in range(bs)]
+        jitter = [draw_jitter_params(cfg.datasets.augmentation.jittering, rng) for _ in samples]
+        batches.append(collate_train_batch(samples, jitter))
+
+    t0 = time.perf_counter()
+    model = setup_model(cfg.model, device=device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model built in {time.perf_counter() - t0:.1f} s, {n_params / 1e6:.1f} M parameters")
+    optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler,
+                                          steps_per_epoch=STEPS)
+    step = make_train_step(model, optimizer, scheduler, num_scales=loss.num_scales,
+                           generator=torch.Generator().manual_seed(0))
+    flagship_view_synthesis(model, batches[0], device)
+    flagship_cpu_reference(model, cfg, device)
+
+    counts = run_steps(step, zero_metrics(device), batches, 0.0)
+    # the contexts are stacked on the batch: one warp per scale and step
+    want = {"softargmax_fwd": 0, "softargmax_bwd": 0,
+            "warp_fwd": KITTI_SCALES * STEPS, "warp_bwd": KITTI_SCALES * STEPS}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    return counts, proj_err
+    return counts
 
 
 def main():
@@ -311,21 +604,34 @@ def main():
 
     from packnet_sfm_tpu_torch.geometry.camera_generic import projection_temperature
 
-    cfg = omnicam_config()
+    cfg, kitti = omnicam_config(), kitti_config()
     measured = kernel_phase(device, cfg.datasets.augmentation.image_shape,
                             projection_temperature(PROGRESS))
-    counts, _ = slice_phase(device, cfg)
+    measured.update(warp_kernel_phase(device, path_shapes(kitti)))
+    _blocker.clear()                # the timing's 256 MiB matrix: not a part of any step's memory
+    torch.cuda.empty_cache()
+    nrs_counts, _ = slice_phase(device, cfg)
+    kitti_counts = flagship_phase(device, kitti)
 
+    # each kernel's launches are those of the train path it belongs to: the
+    # NRS steps for the soft-argmax (they also launch the warp kernels, twice
+    # a step each), the flagship steps for the warp
     meta = {
-        "softargmax_fwd": dict(replaces="packnet_sfm_tpu/ops/pallas_softargmax.py:105"),
-        "softargmax_bwd": dict(replaces="packnet_sfm_tpu/ops/pallas_softargmax.py:159"),
+        "softargmax_fwd": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:105", nrs_counts),
+        "softargmax_bwd": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:159", nrs_counts),
+        "warp_fwd": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
+        "warp_bwd": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
     }
-    kernels = [dict(name=name, route="cuda", source="packnet_sfm_tpu_torch/csrc/softargmax.cu",
-                    replaces=meta[name]["replaces"], launches=counts[name],
-                    max_abs_err=measured[name]["max_abs_err"], ms=measured[name]["ms"],
-                    plain_ms=measured[name]["plain_ms"], bound_ms=measured[name]["bound_ms"],
-                    bound_by=measured[name]["bound_by"], library_ms=None)
-               for name in ("softargmax_fwd", "softargmax_bwd")]
+    kernels = []
+    for name, (source, replaces, counts) in meta.items():
+        m = measured[name]
+        entry = dict(name=name, route="cuda", source=f"packnet_sfm_tpu_torch/csrc/{source}.cu",
+                     replaces=replaces, launches=counts[name], max_abs_err=m["max_abs_err"],
+                     ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                     bound_by=m["bound_by"], library_ms=m.get("library_ms"))
+        if "by_shape" in m:
+            entry["by_shape"] = m["by_shape"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ with a user yaml or dict; dataset lists broadcast to a common length.
 
 The schema mirrors the JAX package key-for-key so the repo's yaml configs
 work here unmodified. ``yaml`` is imported inside ``load_config`` only, so
-the train path runs where PyYAML is not installed; ``OMNICAM`` is the NRS
-configuration (``configs/train_omnicam.yaml``) as a dict literal for that
-case.
+the train paths run where PyYAML is not installed; ``OMNICAM``
+(``configs/train_omnicam.yaml``, NRS) and ``KITTI``
+(``configs/train_kitti.yaml``, the PackNet01 flagship) are those
+configurations as dict literals for that case.
 """
 
 from __future__ import annotations
@@ -270,6 +271,46 @@ OMNICAM = {
             "path": ["/data/datasets/omnicam"],
             "split": [""],
             "depth_type": [""],
+        },
+    },
+}
+
+
+# configs/train_kitti.yaml as ``yaml.safe_load`` returns it: the flagship
+# self-supervised training (SelfSupModel, PackNet01-1A + PoseNet, 192x640,
+# batch 4). tests/test_torch_port_rules.py holds the two equal.
+KITTI = {
+    "arch": {"dtype": "bfloat16"},
+    "model": {
+        "name": "SelfSupModel",
+        "optimizer": {"name": "Adam", "depth": {"lr": 0.0002}, "pose": {"lr": 0.0002}},
+        "scheduler": {"name": "StepLR", "step_size": 30, "gamma": 0.5},
+        "depth_net": {"name": "PackNet01", "version": "1A"},
+        "pose_net": {"name": "PoseNet", "version": ""},
+        "params": {"crop": "garg", "min_depth": 0.0, "max_depth": 80.0},
+    },
+    "datasets": {
+        "augmentation": {"image_shape": "(192, 640)"},
+        "train": {
+            "batch_size": 4,
+            "dataset": ["KITTI"],
+            "path": ["/data/datasets/KITTI_raw"],
+            "split": ["data_splits/eigen_zhou_files.txt"],
+            "depth_type": ["velodyne"],
+            "repeat": [2],
+        },
+        "validation": {
+            "dataset": ["KITTI"],
+            "path": ["/data/datasets/KITTI_raw"],
+            "split": ["data_splits/eigen_val_files.txt",
+                      "data_splits/eigen_test_files.txt"],
+            "depth_type": ["velodyne"],
+        },
+        "test": {
+            "dataset": ["KITTI"],
+            "path": ["/data/datasets/KITTI_raw"],
+            "split": ["data_splits/eigen_test_files.txt"],
+            "depth_type": ["velodyne"],
         },
     },
 }

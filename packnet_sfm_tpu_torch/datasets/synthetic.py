@@ -118,3 +118,21 @@ class SyntheticSfmDataset:
         if self.data_transform is not None:
             sample = self.data_transform(sample, idx=idx)
         return sample
+
+
+def collate_train_batch(samples, jitter=None) -> dict:
+    """Stack samples into the host batch of the train step: 'rgb'
+    [B, H, W, 3], 'rgb_context' (a list of [B, H, W, 3], one per context),
+    'intrinsics' [B, 3, 3] and, if given, 'jitter' [B, 4] (one row of
+    factors per sample)."""
+    samples = list(samples)
+    n_ctx = len(samples[0]["rgb_context"])
+    batch = {
+        "rgb": np.stack([s["rgb"] for s in samples]),
+        "rgb_context": [np.stack([s["rgb_context"][c] for s in samples])
+                        for c in range(n_ctx)],
+        "intrinsics": np.stack([s["intrinsics"] for s in samples]),
+    }
+    if jitter is not None:
+        batch["jitter"] = np.stack(list(jitter)).astype(np.float32)
+    return batch

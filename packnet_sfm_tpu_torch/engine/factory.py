@@ -1,8 +1,8 @@
 """Config -> model/optimizer factories (port of ``engine/factory.py``).
 
-This slice ports the NRS configuration: RaySurfaceResNet depth, PoseNet
-pose and the GenericSelfSupModel loss; other networks and kinds raise
-``NotImplementedError`` until their slice lands (ROADMAP.md).
+Ported: the PackNet01, PackNetSlim01 and RaySurfaceResNet depth networks,
+PoseNet, and the SelfSupModel and GenericSelfSupModel kinds; other networks
+and kinds raise ``NotImplementedError`` until their slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,12 +12,19 @@ import torch
 from packnet_sfm_tpu_torch.core.config import ConfigNode
 from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.losses.generic_photometric import GenericPhotometricConfig
-from packnet_sfm_tpu_torch.models.sfm import SfmModelDef
+from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricConfig
+from packnet_sfm_tpu_torch.models.sfm import PORTED_KINDS, SfmModelDef
+from packnet_sfm_tpu_torch.nn.packnet import PackNet01, PackNetSlim01
 from packnet_sfm_tpu_torch.nn.posenet import PoseNet
 from packnet_sfm_tpu_torch.nn.raysurface import RaySurfaceResNet
 
 
 def setup_depth_net(cfg: ConfigNode):
+    version = cfg.get("version", "")
+    if cfg.name in ("PackNet01", "PackNetSlim01"):
+        net = PackNet01 if cfg.name == "PackNet01" else PackNetSlim01
+        return net(version=version[1:] or "A", dropout=cfg.get("dropout", 0.0) or None,
+                   remat=bool(cfg.get("remat", False)))
     if cfg.name == "RaySurfaceResNet":
         return RaySurfaceResNet(version=cfg.get("version", "").replace("pt", "") or "18")
     raise NotImplementedError(f"depth net {cfg.name!r} is not ported yet; see ROADMAP.md")
@@ -38,7 +45,7 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
     with the JAX package's initializers, then moved to ``device``.
     """
     device = resolve_device(device)
-    if not cfg.name.startswith("Generic"):
+    if cfg.name not in PORTED_KINDS:
         raise NotImplementedError(f"model {cfg.name!r} is not ported yet; see ROADMAP.md")
     loss = cfg.loss
     gen = torch.Generator().manual_seed(seed)
@@ -47,8 +54,7 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
     pose_net = setup_pose_net(cfg.pose_net)
     if pose_net is not None:
         pose_net.init_weights(gen)
-    generic_photometric = GenericPhotometricConfig(
-        num_scales=1,
+    knobs = dict(
         ssim_loss_weight=loss.ssim_loss_weight,
         smooth_loss_weight=loss.smooth_loss_weight,
         photometric_reduce_op=loss.photometric_reduce_op,
@@ -56,9 +62,16 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
         automask_loss=loss.automask_loss,
         padding_mode=loss.padding_mode,
     )
-    model = SfmModelDef(depth_net, pose_net, kind=cfg.name,
+    photometric = MultiViewPhotometricConfig(num_scales=loss.num_scales, C1=loss.C1,
+                                             C2=loss.C2, **knobs)
+    generic_photometric = None
+    if cfg.name.startswith("Generic"):
+        generic_photometric = GenericPhotometricConfig(num_scales=1, **knobs)
+    model = SfmModelDef(depth_net, pose_net, kind=cfg.name, photometric=photometric,
                         generic_photometric=generic_photometric,
-                        rotation_mode=loss.rotation_mode)
+                        rotation_mode=loss.rotation_mode,
+                        flip_lr_prob=loss.flip_lr_prob,
+                        upsample_depth_maps=loss.upsample_depth_maps)
     return model.to(device)
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the root of the
 checkout (listed in ``.gitignore``), keyed by a hash of the source, then
-loaded with ``ctypes``. Nothing is built or imported when this module is
-imported.
+loaded with ``ctypes``. Nothing is built or loaded when this module is
+imported. ``check_tensor`` and ``stream`` are what every kernel wrapper does
+before a launch.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -29,9 +32,28 @@ SIGNATURES = {
         "softargmax_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
         "softargmax_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     },
+    "warp": {
+        "warp_fwd": [_P] * 3 + [_I] * 7 + [_P],
+        "warp_bwd": [_P] * 5 + [_I] * 7 + [_P],
+    },
 }
 
 _loaded: dict = {}
+
+
+def check_tensor(name: str, t: torch.Tensor, shape) -> None:
+    """Raise unless ``t`` is what the kernels take: a contiguous float32 CUDA
+    tensor of ``shape``."""
+    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, got "
+                         f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the launchers take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _nvcc() -> str:

@@ -44,18 +44,6 @@ def _check_temperature(temperature) -> float:
     return float(temperature)
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape) -> None:
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, got "
-                         f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def softargmax_fwd_cuda(direction, rays, temperature: float, patch: int):
     """Forward kernel: direction, rays [B,3,h,w] -> ex, ey, m, s [B,h,w]."""
     from packnet_sfm_tpu_torch.ops import _cuda
@@ -63,15 +51,15 @@ def softargmax_fwd_cuda(direction, rays, temperature: float, patch: int):
     b, _, h, w = direction.shape
     _check_window(h, w, patch)
     temperature = _check_temperature(temperature)
-    _check_cuda("direction", direction, (b, 3, h, w))
-    _check_cuda("rays", rays, (b, 3, h, w))
+    _cuda.check_tensor("direction", direction, (b, 3, h, w))
+    _cuda.check_tensor("rays", rays, (b, 3, h, w))
     lib = _cuda.load("softargmax")
     ex, ey, m, s = (torch.empty((b, h, w), dtype=torch.float32, device=direction.device)
                     for _ in range(4))
     with torch.cuda.device(direction.device):
         err = lib.softargmax_fwd(direction.data_ptr(), rays.data_ptr(), ex.data_ptr(),
                                  ey.data_ptr(), m.data_ptr(), s.data_ptr(), b, h, w,
-                                 patch, temperature, _stream(direction))
+                                 patch, temperature, _cuda.stream(direction))
     if err != 0:
         raise RuntimeError(f"softargmax_fwd launch failed: cudaError {err}")
     launch_counts["softargmax_fwd"] += 1
@@ -87,11 +75,11 @@ def softargmax_bwd_cuda(direction, rays, temperature: float, patch: int,
     b, _, h, w = direction.shape
     _check_window(h, w, patch)
     temperature = _check_temperature(temperature)
-    _check_cuda("direction", direction, (b, 3, h, w))
-    _check_cuda("rays", rays, (b, 3, h, w))
+    _cuda.check_tensor("direction", direction, (b, 3, h, w))
+    _cuda.check_tensor("rays", rays, (b, 3, h, w))
     for name, t in (("ex", ex), ("ey", ey), ("m", m), ("s", s),
                     ("gex", gex), ("gey", gey)):
-        _check_cuda(name, t, (b, h, w))
+        _cuda.check_tensor(name, t, (b, h, w))
     lib = _cuda.load("softargmax")
     ddir = torch.empty_like(direction)
     drays = torch.zeros_like(rays)
@@ -100,7 +88,7 @@ def softargmax_bwd_cuda(direction, rays, temperature: float, patch: int,
                                  ey.data_ptr(), m.data_ptr(), s.data_ptr(),
                                  gex.data_ptr(), gey.data_ptr(), ddir.data_ptr(),
                                  drays.data_ptr(), b, h, w, patch, temperature,
-                                 _stream(direction))
+                                 _cuda.stream(direction))
     if err != 0:
         raise RuntimeError(f"softargmax_bwd launch failed: cudaError {err}")
     launch_counts["softargmax_bwd"] += 1

@@ -6,7 +6,10 @@ numpy arrays (``init_model``'s 'params' and 'batch_stats' collections, e.g.
 ``SfmModelDef.load_state_dict``. The port's submodules are named after the
 flax module tree, so the mapping is by name:
 
-- conv ``kernel`` [kh, kw, in, out] -> ``weight`` [out, in, kh, kw];
+- 2D conv ``kernel`` [kh, kw, in, out] -> ``weight`` [out, in, kh, kw];
+- PackNet's 3D conv ``kernel`` [kz, kh, kw, 1, d] -> ``weight``
+  [d, 1, kz, kh, kw] (the pack layer's fused block keeps the flax tree of the
+  unfused one, ``Conv_0`` + ``Conv2dBlock_0/Conv_0``, so it maps the same way);
 - BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var`` (flax's inner ``BatchNorm_0`` level goes);
 - GroupNorm ``scale``/``bias`` -> ``weight``/``bias``;
@@ -21,6 +24,8 @@ import numpy as np
 import torch
 
 _RENAME = {"Conv_0": "conv", "GroupNorm_0": "norm"}
+# flax kernel axes -> PyTorch weight axes, by kernel rank.
+_KERNEL_AXES = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 
@@ -45,6 +50,8 @@ def from_jax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str
         for path, value in _flatten(tree):
             arr = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel":
-                arr = arr.transpose(3, 2, 0, 1)
+                if arr.ndim not in _KERNEL_AXES:
+                    raise ValueError(f"{'/'.join(path)}: no rule for a {arr.ndim}-D kernel")
+                arr = arr.transpose(_KERNEL_AXES[arr.ndim])
             state[_torch_key(path)] = torch.tensor(arr)
     return state

@@ -5,8 +5,10 @@
 - entry points run on CUDA by default and raise without it, unless the
   caller asks for the CPU; the kernel wrappers raise on a non-CUDA tensor;
 - its own copies of host modules agree with the JAX package's: the OMNICAM
-  dict with configs/train_omnicam.yaml, the synthetic dataset sample for
-  sample.
+  and KITTI dicts with configs/train_omnicam.yaml and configs/train_kitti.yaml,
+  the synthetic dataset sample for sample;
+- the package calls no library warp: no source of it mentions
+  ``F.grid_sample``.
 """
 
 import pathlib
@@ -19,15 +21,17 @@ import pytest
 import torch
 
 from packnet_sfm_tpu_torch.core.config import (
+    KITTI,
     OMNICAM,
     config_from_dict,
     load_config,
     parse_train_config,
 )
-from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
+from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset, collate_train_batch
 from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.engine.factory import setup_model
 from packnet_sfm_tpu_torch.ops import softargmax as sa
+from packnet_sfm_tpu_torch.ops import warp
 
 torch.set_num_threads(1)
 
@@ -61,15 +65,35 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
     assert not re.search(r"^\s*from\s+packnet_sfm_tpu\s+import", src, re.M)
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+@pytest.mark.parametrize("config", [OMNICAM, KITTI], ids=["omnicam", "kitti"])
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, config):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = config_from_dict(OMNICAM)
+    cfg = config_from_dict(config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         setup_model(cfg.model)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    if config is KITTI:
+        cfg.model.depth_net.name = "PackNetSlim01"      # same code path, 0.6 of the weights
     model = setup_model(cfg.model, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
+    assert model.kind == cfg.model.name
+
+
+def test_unported_networks_and_kinds_are_refused():
+    cfg = config_from_dict(KITTI)
+    cfg.model.depth_net.name = "DepthResNet"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        setup_model(cfg.model, device="cpu")
+    cfg = config_from_dict(KITTI)
+    cfg.model.name = "SemiSupModel"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        setup_model(cfg.model, device="cpu")
+    cfg = config_from_dict(KITTI)
+    cfg.model.depth_net.name = "PackNetSlim01"
+    cfg.model.depth_net.dropout = 0.5
+    with pytest.raises(NotImplementedError, match="dropout"):
+        setup_model(cfg.model, device="cpu")
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():
@@ -82,6 +106,47 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     sa.reset_launch_counts()
     sa.softargmax_coords(d, d, 0.05, 2)
     assert sa.launch_counts == {"softargmax_fwd": 0, "softargmax_bwd": 0}
+
+
+def test_warp_wrappers_take_only_cuda_or_cpu_tensors():
+    image, coords = torch.rand(1, 6, 8, 3), torch.rand(1, 6, 8, 2) * 2 - 1
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_fwd_cuda(image, coords)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_bwd_cuda(image, coords, torch.rand(1, 6, 8, 3))
+    with pytest.raises(ValueError, match="no path"):
+        warp.grid_sample(image.to("meta"), coords.to("meta"))
+    with pytest.raises(ValueError, match="no path"):
+        warp.grid_sample(image, coords.to("meta"))
+    # on CPU tensors the entry points take the plain version and launch nothing
+    warp.reset_launch_counts()
+    coords.requires_grad_()
+    warp.grid_sample(image, coords).sum().backward()
+    warp.grid_sample_data(image, coords, "border")
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0}
+
+
+def test_no_source_of_the_package_calls_a_library_warp():
+    for path in sorted(PKG.rglob("*.py")):
+        src = path.read_text()
+        assert "F.grid_sample" not in src, path
+        assert "functional.grid_sample" not in src, path
+        assert "affine_grid" not in src, path
+    assert (PKG / "csrc" / "warp.cu").exists()
+
+
+def test_kitti_matches_the_yaml():
+    yaml = pytest.importorskip("yaml")
+    path = ROOT / "configs" / "train_kitti.yaml"
+    assert KITTI == yaml.safe_load(path.read_text())
+    loaded = load_config(str(path))
+    built = config_from_dict(KITTI)
+    built.config = loaded.config
+    assert loaded == built
+    assert built.datasets.augmentation.image_shape == (192, 640)
+    assert built.datasets.train.batch_size == 4
+    assert built.model.loss.num_scales == 4 and built.model.loss.automask_loss
+    assert parse_train_config(built).prepared
 
 
 def test_omnicam_matches_the_yaml():
@@ -108,3 +173,14 @@ def test_synthetic_dataset_copy_matches_the_jax_package():
             np.testing.assert_array_equal(a[key], b[key])
         for x, y in zip(a["rgb_context"], b["rgb_context"]):
             np.testing.assert_array_equal(x, y)
+
+
+def test_collate_train_batch_stacks_samples():
+    ds = SyntheticSfmDataset(length=3, height=32, width=48, seed=1)
+    jitter = [np.array([1, 1, 1, 0], np.float32)] * 3
+    batch = collate_train_batch([ds[i] for i in range(3)], jitter)
+    assert batch["rgb"].shape == (3, 32, 48, 3)
+    assert [c.shape for c in batch["rgb_context"]] == [(3, 32, 48, 3)] * 2
+    assert batch["intrinsics"].shape == (3, 3, 3) and batch["jitter"].shape == (3, 4)
+    np.testing.assert_array_equal(batch["rgb_context"][1][2], ds[2]["rgb_context"][1])
+    assert "jitter" not in collate_train_batch([ds[0]])

@@ -235,8 +235,11 @@ def test_progress_is_a_host_float(runs):
     batch = prepare_train_batch(_batches()[0], "cpu")
     with pytest.raises(TypeError):
         model_loss(model, batch, progress=torch.tensor(PROGRESS))
-    with pytest.raises(NotImplementedError):
-        prepare_train_batch({**_batches()[0], "jitter": np.zeros((1, 4), np.float32)}, "cpu")
+    # device jitter: the networks see the jittered image, the loss the original
+    jittered = prepare_train_batch(
+        {**_batches()[0], "jitter": np.array([[1.2, 0.9, 1.1, 0.02]], np.float32)}, "cpu")
+    assert torch.equal(jittered["rgb_original"], batch["rgb"])
+    assert not torch.equal(jittered["rgb"], batch["rgb"])
     assert dataclasses.asdict(model.generic_photometric)["patch"] == 20
 
 
