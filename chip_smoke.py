@@ -7,16 +7,18 @@ Phases, each of which fails the run:
 1. Build every kernel of csrc/ with nvcc for sm_90a, from this checkout.
 2. Kernels: K6f/K6b (csrc/softargmax.cu) against their plain PyTorch
    version on seeded inputs at the NRS path's shape, [B,3,192,192], p = 20,
-   B = 1 and 2, T = 0.05 and 1e-4, with their times; warp_fwd/warp_bwd
+   B = 1 and 2, T = 0.05 and 1e-4, with their times (K6f also at T = 0.05,
+   where no window position is skipped); warp_fwd/warp_bwd
    (csrc/warp.cu) against theirs on coordinates that leave the image on
    every side, exact integer coordinates and -1/+1, both padding modes,
-   B = 1 and 8, C = 3 and 1, with d image on, and their times at the four
+   B = 1, 3 and 8, C = 3, 1 and 4, with d image on, and their times at the four
    shapes of the flagship loss beside F.grid_sample's.
 3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
    random weights from seed 0) on synthetic samples: generic_project through
-   the kernels against the plain version on the first step's real tensors;
-   model_loss on the card against the CPU (plain version) at 96x96; then 5
+   the kernels against the plain version on the first step's real tensors,
+   and K6f/K6b timed on those; model_loss on the card against the CPU
+   (plain version) at 96x96; then 5
    train steps at progress 0.5 with the launch counters read around them.
 4. Flagship slice: the train step of configs/train_kitti.yaml (SelfSupModel,
    PackNet01-1A + PoseNet, 192x640, batch 4, 4 scales, automask, device
@@ -51,6 +53,13 @@ PEAK_BYTES = 3.35e12
 # Backward replay: dot (5), scale (1), exp(logit - m) (2), weight (4); the
 # d_dir/d_ray accumulations of non-zero weights are left out (lower bound).
 FWD_OPS, BWD_OPS = 15, 12
+# What K6f cannot go below even where every weight underflows and no
+# exponential is taken: dot (5), scale and compare (2) per position.
+FWD_FLOOR_OPS = 7
+# One exponential per window position on the special-function units: 16
+# lanes per clock on each of the 132 SMs, at the card's largest SM clock.
+SM_COUNT, SFU_LANES = 132, 16
+DENSE_T = 0.05          # no window position of unit vectors is skipped
 
 # Tolerances, kernel vs plain version (coordinates in pixels; gradients
 # relative to their largest magnitude). At T = 1e-4, near-tied window
@@ -78,6 +87,13 @@ KITTI_SCALES = 4
 
 def log(msg):
     print(msg, flush=True)
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def gpu_name_and_power():
@@ -130,6 +146,16 @@ def unit(gen, shape, device):
     return (v / v.norm(dim=1, keepdim=True)).to(device)
 
 
+def softargmax_tile_rows():
+    """Pixel rows of K6f's 32-pixel-wide tile, as csrc/softargmax.cu sets them."""
+    import re
+
+    from packnet_sfm_tpu_torch.ops import _cuda
+
+    src = (_cuda.CSRC / "softargmax.cu").read_text()
+    return int(re.search(r"constexpr int SA_R = (\d+);", src).group(1))
+
+
 def omnicam_config():
     from packnet_sfm_tpu_torch.core.config import OMNICAM, config_from_dict, parse_train_config
 
@@ -175,37 +201,74 @@ def kernel_phase(device, shape, path_temperature):
     # times at the main path's shape and temperature (B = 1, 192x192)
     gen = torch.Generator().manual_seed(1)
     d, r = unit(gen, (1, 3, h, w), device), unit(gen, (1, 3, h, w), device)
-    a, c = (torch.randn((1, h, w), generator=gen).to(device) for _ in range(2))
     t = path_temperature
-    ex, ey, m, s = sa.softargmax_fwd_cuda(d, r, t, PATCH)
-    k_fwd = time_ms(lambda: sa.softargmax_fwd_cuda(d, r, t, PATCH))
-    k_bwd = time_ms(lambda: sa.softargmax_bwd_cuda(d, r, t, PATCH, ex, ey, m, s, a, c))
-    with torch.no_grad():
-        p_fwd = time_ms(lambda: sa.softargmax_coords_plain(d, r, t, PATCH))
-    dp, rp = d.clone().requires_grad_(), r.clone().requires_grad_()
-    ex_p, ey_p = sa.softargmax_coords_plain(dp, rp, t, PATCH)
-    out = (ex_p * a).sum() + (ey_p * c).sum()
-    p_bwd = time_ms(lambda: torch.autograd.grad(out, (dp, rp), retain_graph=True))
+    path_case = time_softargmax(d, r, t, f"seeded unit vectors, T={t:.3e}", plain=True)
+    dense = time_softargmax(d, r, DENSE_T, f"seeded unit vectors, T={DENSE_T:g} (nothing skipped)",
+                            backward=False)
+    fwd, bwd = path_case["fwd"], path_case["bwd"]
+    return {
+        "softargmax_fwd": dict(max_abs_err=err["fwd"], by_case=[fwd, dense["fwd"]],
+                               **{k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}),
+        "softargmax_bwd": dict(max_abs_err=err["bwd"], by_case=[bwd],
+                               **{k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}),
+    }
+
+
+def time_softargmax(d, r, t, case, backward=True, plain=False):
+    """Device times of K6f (and K6b, and their plain versions) on direction
+    and ray fields [1,3,h,w] at temperature ``t``, with their bounds."""
+    import torch
+
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+
+    _, _, h, w = d.shape
+    gen = torch.Generator().manual_seed(3)
+    a, c = (torch.randn((1, h, w), generator=gen).to(d.device) for _ in range(2))
     plane = h * w * 4
     positions = h * w * (2 * PATCH + 1) ** 2
+    exp_ms = positions / (SM_COUNT * SFU_LANES * max_sm_clock_hz()) * 1e3
     b_fwd = bound_ms((2 * 3 + 4) * plane, FWD_OPS * positions)
-    b_bwd = bound_ms((2 * 3 + 6 + 2 * 3) * plane, BWD_OPS * positions)
-    log(f"times at [1,3,{h},{w}] T={t:.3e}: K6f {k_fwd:.3f} ms (plain {p_fwd:.3f}, bound "
-        f"{b_fwd[0]:.4f}), K6b {k_bwd:.3f} ms (plain backward {p_bwd:.3f}, bound {b_bwd[0]:.4f})")
-    return {
-        "softargmax_fwd": dict(max_abs_err=err["fwd"], ms=k_fwd, plain_ms=p_fwd,
-                               bound_ms=b_fwd[0], bound_by=b_fwd[1]),
-        "softargmax_bwd": dict(max_abs_err=err["bwd"], ms=k_bwd, plain_ms=p_bwd,
-                               bound_ms=b_bwd[0], bound_by=b_bwd[1]),
-    }
+    if exp_ms > b_fwd[0]:
+        b_fwd = (exp_ms, "operations")
+    fwd = dict(case=case, ms=time_ms(lambda: sa.softargmax_fwd_cuda(d, r, t, PATCH)),
+               bound_ms=b_fwd[0], bound_by=b_fwd[1],
+               fp32_bound_ms=FWD_OPS * positions / PEAK_FP32_OPS * 1e3, exp_bound_ms=exp_ms,
+               floor_ms=FWD_FLOOR_OPS * positions / PEAK_FP32_OPS * 1e3)
+    out = {"fwd": fwd}
+    if plain:
+        with torch.no_grad():
+            fwd["plain_ms"] = time_ms(lambda: sa.softargmax_coords_plain(d, r, t, PATCH))
+    msg = (f"K6f at [1,3,{h},{w}] {case}: {fwd['ms']:.4f} ms (bound {b_fwd[0]:.4f}: FP32 "
+           f"{fwd['fp32_bound_ms']:.4f}, exponentials {exp_ms:.4f}; floor without exponentials "
+           f"{fwd['floor_ms']:.4f}" + (f"; plain {fwd['plain_ms']:.3f}" if plain else "") + ")")
+    if backward:
+        ex, ey, m, s = sa.softargmax_fwd_cuda(d, r, t, PATCH)
+        b_bwd = bound_ms((2 * 3 + 6 + 2 * 3) * plane, BWD_OPS * positions)
+        bwd = dict(case=case, bound_ms=b_bwd[0], bound_by=b_bwd[1],
+                   ms=time_ms(lambda: sa.softargmax_bwd_cuda(d, r, t, PATCH, ex, ey, m, s, a, c)))
+        out["bwd"] = bwd
+        msg += f"; K6b {bwd['ms']:.4f} ms (bound {b_bwd[0]:.4f}"
+        if plain:
+            dp, rp = d.clone().requires_grad_(), r.clone().requires_grad_()
+            ex_p, ey_p = sa.softargmax_coords_plain(dp, rp, t, PATCH)
+            loss = (ex_p * a).sum() + (ey_p * c).sum()
+            bwd["plain_ms"] = time_ms(
+                lambda: torch.autograd.grad(loss, (dp, rp), retain_graph=True))
+            msg += f"; plain backward {bwd['plain_ms']:.3f}"
+        msg += ")"
+    log(msg)
+    return out
 
 
 def real_tensor_projection(model, batch, device, temperature):
     """generic_project through the kernels vs the plain version on the first
-    step's tensors (the model's state is restored afterwards)."""
+    step's tensors (the model's state is restored afterwards). Returns the
+    worst difference and the direction and ray fields that the first
+    projection handed to the kernels."""
     import torch
 
     from packnet_sfm_tpu_torch.engine.train import prepare_train_batch
+    from packnet_sfm_tpu_torch.geometry import camera_generic
     from packnet_sfm_tpu_torch.geometry.camera_generic import (
         GenericCamera, canonical_pinhole_rays, generic_project, generic_reconstruct)
     from packnet_sfm_tpu_torch.losses.generic_photometric import blend_ray_surface
@@ -214,27 +277,38 @@ def real_tensor_projection(model, batch, device, temperature):
 
     state = {k: v.clone() for k, v in model.state_dict().items()}
     worst = 0.0
-    with torch.no_grad():
-        b = prepare_train_batch(batch, device)
-        h, w = b["rgb"].shape[1:3]
-        out = model_forward(model, b, train=True)
-        rays = blend_ray_surface(canonical_pinhole_rays(h, w, device=device),
-                                 out["ray_surface"], PROGRESS)
-        world = generic_reconstruct(GenericCamera(rays=rays), inv2depth(out["inv_depths"][0]))
-        for pose in out["poses"]:
-            cam = GenericCamera(rays=rays, Tcw=pose)
-            kern = generic_project(cam, world, temperature, patch=PATCH)
-            plain = generic_project(cam, world, temperature, patch=PATCH, projector="plain")
-            if not torch.isfinite(kern).all():
-                raise AssertionError("non-finite projection")
-            # normalized coords -> pixels of the 192x192 projection grid
-            worst = max(worst, (kern - plain).abs().max().item() * (h // 2 - 1) / 2)
+    operands = []
+    entry = camera_generic.softargmax_coords
+
+    def recording(direction, rays, temperature, patch):
+        operands.append((direction, rays))
+        return entry(direction, rays, temperature, patch)
+
+    camera_generic.softargmax_coords = recording
+    try:
+        with torch.no_grad():
+            b = prepare_train_batch(batch, device)
+            h, w = b["rgb"].shape[1:3]
+            out = model_forward(model, b, train=True)
+            rays = blend_ray_surface(canonical_pinhole_rays(h, w, device=device),
+                                     out["ray_surface"], PROGRESS)
+            world = generic_reconstruct(GenericCamera(rays=rays), inv2depth(out["inv_depths"][0]))
+            for pose in out["poses"]:
+                cam = GenericCamera(rays=rays, Tcw=pose)
+                kern = generic_project(cam, world, temperature, patch=PATCH)
+                plain = generic_project(cam, world, temperature, patch=PATCH, projector="plain")
+                if not torch.isfinite(kern).all():
+                    raise AssertionError("non-finite projection")
+                # normalized coords -> pixels of the 192x192 projection grid
+                worst = max(worst, (kern - plain).abs().max().item() * (h // 2 - 1) / 2)
+    finally:
+        camera_generic.softargmax_coords = entry
     model.load_state_dict(state)
     log(f"generic_project on the first step's tensors: kernel vs plain max "
         f"{worst:.3e} px of the {h // 2}x{w // 2} grid (tolerance {TOL_PX[1e-4]:g})")
     if worst > TOL_PX[1e-4]:
         raise AssertionError("generic_project through the kernels disagrees with plain")
-    return worst
+    return worst, operands[0]
 
 
 def cpu_reference(model, cfg, device):
@@ -264,6 +338,8 @@ def cpu_reference(model, cfg, device):
 
 
 def slice_phase(device, cfg):
+    import torch
+
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
     from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
     from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
@@ -284,7 +360,12 @@ def slice_phase(device, cfg):
     optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler,
                                           steps_per_epoch=len(ds))
     step = make_train_step(model, optimizer, scheduler)
-    proj_err = real_tensor_projection(model, batches[0], device, temperature)
+    proj_err, (direction, rays) = real_tensor_projection(model, batches[0], device, temperature)
+    real = time_softargmax(direction, rays, temperature,
+                           f"the first step's direction and ray fields, T={temperature:.3e}")
+    del direction, rays
+    _blocker.clear()                # the timing's 256 MiB matrix: not a part of the steps' memory
+    torch.cuda.empty_cache()
     cpu_reference(model, cfg, device)
 
     acc = zero_metrics(device)
@@ -294,7 +375,7 @@ def slice_phase(device, cfg):
             "warp_fwd": 2 * STEPS, "warp_bwd": 2 * STEPS}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    return counts, proj_err
+    return counts, real
 
 
 def run_steps(step, acc, batches, progress):
@@ -385,6 +466,9 @@ def warp_kernel_phase(device, shapes):
     cases = [(b, 48, 160, c, ho, wo, pad)
              for b in (1, 8) for c in (3, 1) for (ho, wo) in ((48, 160), (37, 75))
              for pad in ("zeros", "border")]
+    # an odd pixel count (no block's output is 16-byte aligned) and the
+    # general channel loop
+    cases += [(3, 33, 71, 3, 37, 75, "zeros"), (3, 33, 71, 4, 37, 75, "border")]
     cases.append(shapes[0] + (3,) + shapes[0][1:] + ("zeros",))
     for b, h, w, c, ho, wo, pad in cases:
         image, coords, grad = warp_inputs(gen, b, h, w, c, ho, wo, device, spread=1.3)
@@ -598,8 +682,13 @@ def main():
     for name, (secs, out) in report.items():
         log(f"built csrc/{name}.cu in {secs:.1f} s")
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  " + line.strip())
+    rows = softargmax_tile_rows()
+    union = (rows + 2 * PATCH, 32 + 2 * PATCH)
+    log(f"K6f dynamic shared memory per block at p = {PATCH}: the window union of a "
+        f"32 x {rows} pixel tile, 3 x {union[0]} x {union[1]} floats = "
+        f"{3 * union[0] * union[1] * 4} bytes, beside the static bytes above")
     log(f"build phase {time.perf_counter() - t0:.1f} s")
 
     from packnet_sfm_tpu_torch.geometry.camera_generic import projection_temperature
@@ -610,7 +699,9 @@ def main():
     measured.update(warp_kernel_phase(device, path_shapes(kitti)))
     _blocker.clear()                # the timing's 256 MiB matrix: not a part of any step's memory
     torch.cuda.empty_cache()
-    nrs_counts, _ = slice_phase(device, cfg)
+    nrs_counts, real = slice_phase(device, cfg)
+    measured["softargmax_fwd"]["by_case"].append(real["fwd"])
+    measured["softargmax_bwd"]["by_case"].append(real["bwd"])
     kitti_counts = flagship_phase(device, kitti)
 
     # each kernel's launches are those of the train path it belongs to: the
@@ -629,8 +720,9 @@ def main():
                      replaces=replaces, launches=counts[name], max_abs_err=m["max_abs_err"],
                      ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                      bound_by=m["bound_by"], library_ms=m.get("library_ms"))
-        if "by_shape" in m:
-            entry["by_shape"] = m["by_shape"]
+        for extra in ("by_shape", "by_case"):
+            if extra in m:
+                entry[extra] = m[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,14 +30,30 @@
 // ratio. At the flagship loss's finest scale ([8, 192, 640, 3]) that is
 // 31 MB forward and 39 MB backward, about 0.01 ms each at 3.35 TB/s.
 //
-// Design. One thread per output pixel; the 32 threads of a warp are 32
-// neighbouring pixels of an output row, so coordinates and output are read
-// and written coalesced. Each thread reads its own four taps straight from
-// the image: a view-synthesis warp is smooth, so neighbouring threads hit
-// neighbouring pixels and L1/L2 serve the reuse between them. Nothing of
-// the TPU formulation is carried over: no padded 4-tap stack, no index
-// array, no packing of lanes; those answered a machine without a gather.
-// Staging image tiles in shared memory, and a deterministic d image, are
+// Design of the forward. The work per pixel is tiny, so the time is in how
+// the loads and stores are made, not in the arithmetic:
+// - The batch is blockIdx.y and a pixel's index within its image is an int:
+//   no 64-bit division or multiplication per thread, one 64-bit base
+//   pointer per block.
+// - C is a template parameter for the paths' cases, 3 (RGB) and 1 (masks,
+//   depth), so the 4 C tap loads are hoisted ahead of the arithmetic; any
+//   other C takes a run-time channel loop.
+// - One pixel per thread; the 32 threads of a warp are 32 neighbouring
+//   pixels of an output row, so every coordinate load is one coalesced
+//   float2 per thread, and as a view-synthesis warp is smooth their taps are
+//   neighbours and L1/L2 serve the reuse between them.
+// - Where all four taps lie inside the image (nearly every pixel), a row's
+//   two taps are read through one pointer as 2 C contiguous floats, with no
+//   masks or clamps.
+// Measured and dropped (times in PERF.md): 2 or 4 pixels per thread, which
+// adds loads in flight but leaves the small shapes with too few blocks; and
+// for C = 3, staging the block's results in shared memory to store them as
+// coalesced 16-byte vectors, which costs a barrier and more than the strided
+// 4-byte stores it saves, as L2 merges those.
+// The backward keeps its first design: one thread per output pixel reading
+// its four taps straight from the image. Nothing of the TPU formulation is
+// carried over: no padded 4-tap stack, no index array, no packing of lanes;
+// those answered a machine without a gather. A deterministic d image is
 // left for a later change.
 
 #include <cuda_runtime.h>
@@ -87,29 +103,72 @@ __device__ __forceinline__ Taps make_taps(float cx, float cy, int h, int w,
   return t;
 }
 
+// C > 0: the channel count, known to the compiler. C == 0: any count, `c_rt`.
+// The grid is (blocks of one image, images).
+template <int C>
 __global__ void __launch_bounds__(THREADS)
 warp_fwd_kernel(const float* __restrict__ image,
                 const float* __restrict__ coords, float* __restrict__ out,
-                long long n_out, int per_image, int h, int w, int c,
-                int border) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n_out) return;
-  const int b = (int)(i / per_image);
-  const Taps t = make_taps(coords[2 * i], coords[2 * i + 1], h, w, border);
-  const float* img = image + (size_t)b * h * w * c;
-  const float* p00 = img + (size_t)t.o00 * c;
-  const float* p01 = img + (size_t)t.o01 * c;
-  const float* p10 = img + (size_t)t.o10 * c;
-  const float* p11 = img + (size_t)t.o11 * c;
-  float* o = out + (size_t)i * c;
-  for (int ch = 0; ch < c; ++ch) {
-    const float v00 = t.m00 != 0.f ? __ldg(p00 + ch) : 0.f;
-    const float v01 = t.m01 != 0.f ? __ldg(p01 + ch) : 0.f;
-    const float v10 = t.m10 != 0.f ? __ldg(p10 + ch) : 0.f;
-    const float v11 = t.m11 != 0.f ? __ldg(p11 + ch) : 0.f;
-    const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
-    const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
-    o[ch] = top * (1.0f - t.wy) + bot * t.wy;
+                int per_image, int h, int w, int c_rt, int border) {
+  const int c = C > 0 ? C : c_rt;
+  const int pix = blockIdx.x * THREADS + threadIdx.x;  // within the image
+  const size_t b = blockIdx.y;
+  const float* img = image + b * h * w * c;
+  const float2* crd = reinterpret_cast<const float2*>(coords) + b * per_image;
+  float* o = out + (b * per_image + pix) * c;
+  // a thread past the end samples the image's centre and stores nothing
+  // (measured faster than leaving early)
+  const bool live = pix < per_image;
+  const float2 xy = live ? __ldg(crd + pix) : make_float2(0.f, 0.f);
+  const Taps t = make_taps(xy.x, xy.y, h, w, border);
+
+  if constexpr (C == 0) {
+    if (!live) return;
+    const float* p00 = img + t.o00 * c;
+    const float* p01 = img + t.o01 * c;
+    const float* p10 = img + t.o10 * c;
+    const float* p11 = img + t.o11 * c;
+    for (int ch = 0; ch < c; ++ch) {
+      const float v00 = t.m00 != 0.f ? __ldg(p00 + ch) : 0.f;
+      const float v01 = t.m01 != 0.f ? __ldg(p01 + ch) : 0.f;
+      const float v10 = t.m10 != 0.f ? __ldg(p10 + ch) : 0.f;
+      const float v11 = t.m11 != 0.f ? __ldg(p11 + ch) : 0.f;
+      const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
+      const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
+      o[ch] = top * (1.0f - t.wy) + bot * t.wy;
+    }
+  } else {
+    float v[4][C];
+    const float* p00 = img + t.o00 * C;
+    const float* p10 = img + t.o10 * C;
+    // all four taps inside the image: o01 = o00 + 1 and o11 = o10 + 1
+    if (t.o01 == t.o00 + 1 && t.o11 == t.o10 + 1 &&
+        t.m00 * t.m01 * t.m10 * t.m11 != 0.f) {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        v[0][ch] = __ldg(p00 + ch);
+        v[1][ch] = __ldg(p00 + C + ch);
+        v[2][ch] = __ldg(p10 + ch);
+        v[3][ch] = __ldg(p10 + C + ch);
+      }
+    } else {
+      const float* p01 = img + t.o01 * C;
+      const float* p11 = img + t.o11 * C;
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        v[0][ch] = t.m00 != 0.f ? __ldg(p00 + ch) : 0.f;
+        v[1][ch] = t.m01 != 0.f ? __ldg(p01 + ch) : 0.f;
+        v[2][ch] = t.m10 != 0.f ? __ldg(p10 + ch) : 0.f;
+        v[3][ch] = t.m11 != 0.f ? __ldg(p11 + ch) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float top = v[0][ch] * (1.0f - t.wx) + v[1][ch] * t.wx;
+      const float bot = v[2][ch] * (1.0f - t.wx) + v[3][ch] * t.wx;
+      const float r = top * (1.0f - t.wy) + bot * t.wy;
+      if (live) o[ch] = r;
+    }
   }
 }
 
@@ -158,9 +217,9 @@ warp_bwd_kernel(const float* __restrict__ image,
 }
 
 bool bad_shape(int b, int h, int w, int c, int ho, int wo) {
-  // Pixel offsets within one image and within one output are ints.
+  // Element offsets within one image and within one output are ints.
   return b < 0 || h < 1 || w < 1 || c < 1 || ho < 1 || wo < 1 ||
-         (long long)h * w > 0x7fffffffLL || (long long)ho * wo > 0x7fffffffLL;
+         (long long)h * w * c > 0x7fffffffLL || (long long)ho * wo * c > 0x7fffffffLL;
 }
 
 long long blocks_for(long long n) { return (n + THREADS - 1) / THREADS; }
@@ -177,12 +236,25 @@ extern "C" int warp_fwd(const float* image, const float* coords, float* out,
                         int padding, void* stream) {
   if (bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1))
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)b * ho * wo;
-  if (n == 0) return 0;
-  if (blocks_for(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  warp_fwd_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      image, coords, out, n, ho * wo, h, w, c, padding);
-  return (int)cudaGetLastError();
+  const int per_image = ho * wo;
+  // gridDim.y holds at most 65535 images: larger batches go in pieces
+  for (int b0 = 0; b0 < b; b0 += 65535) {
+    const int nb = b - b0 < 65535 ? b - b0 : 65535;
+    const dim3 grid((unsigned)blocks_for(per_image), (unsigned)nb);
+    const float* im = image + (size_t)b0 * h * w * c;
+    const float* co = coords + (size_t)b0 * per_image * 2;
+    float* ou = out + (size_t)b0 * per_image * c;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (c == 3)
+      warp_fwd_kernel<3><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
+    else if (c == 1)
+      warp_fwd_kernel<1><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
+    else
+      warp_fwd_kernel<0><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 extern "C" int warp_bwd(const float* image, const float* coords,

@@ -16,8 +16,9 @@ tap's index is clamped into the image).
 - ``launch_counts``: launches of each kernel, counted where the wrapper
   launches it, so a run can show that its path went through the kernels.
 
-The kernels compute in float32. The gradient with respect to the
-coordinates comes back in the coordinates' dtype.
+The kernels compute in float32. On both devices the result comes back in
+the dtype that the image's and the coordinates' promote to, and the gradient
+with respect to the coordinates in the coordinates' dtype.
 """
 
 from __future__ import annotations
@@ -122,14 +123,16 @@ def grid_sample(image: torch.Tensor, coords: torch.Tensor,
     """Sample ``image`` [B, H, W, C] at ``coords`` [B, H', W', 2].
 
     ``coords[..., 0]`` is x and ``coords[..., 1]`` is y. CUDA tensors go
-    through the kernels (in float32), CPU tensors through
+    through the kernels (in float32, cast back to the inputs' promoted dtype
+    outside the autograd function), CPU tensors through
     ``grid_sample_plain``.
     """
     _padding_code(padding_mode)
     _check_shapes(image, coords)
     if image.is_cuda and coords.is_cuda:
-        return _WarpCuda.apply(image.float().contiguous(), coords.float().contiguous(),
-                               padding_mode)
+        out = _WarpCuda.apply(image.float().contiguous(), coords.float().contiguous(),
+                              padding_mode)
+        return out.to(torch.promote_types(image.dtype, coords.dtype))
     if image.device.type == "cpu" and coords.device.type == "cpu":
         return grid_sample_plain(image, coords, padding_mode)
     raise ValueError(f"grid_sample has no path for devices {image.device} and {coords.device}")

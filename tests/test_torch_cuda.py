@@ -4,8 +4,11 @@ where there is no CUDA device; run there with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Shapes cover a width that is not a multiple of the 32-pixel block, an image
-exactly one window tall, several batches and both temperatures.
+Shapes cover a width and a height that are not multiples of the forward's
+32 x 3 pixel tile, an image exactly one window tall and wide (every window
+clamped on all four borders), a window narrower than four positions, a
+window so large that its rays are staged in pieces, several batches and both
+temperatures.
 Tolerances (coordinates in pixels; gradients relative to their largest
 magnitude): T = 0.05, 2e-3 px and 1e-3; T = 1e-4, 0.1 px and 5e-2 — at
 T = 1e-4 near-tied window positions turn the f32 rounding of the logits
@@ -33,7 +36,10 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 CASES = [((2, 24, 48), 4, 0.05), ((1, 45, 70), 20, 0.05), ((1, 41, 41), 20, 0.05),
-         ((2, 64, 96), 20, 1e-4)]
+         ((2, 64, 96), 20, 1e-4),
+         ((3, 43, 77), 20, 0.05), ((3, 50, 45), 20, 1e-4), ((1, 41, 41), 20, 1e-4),
+         ((2, 7, 35), 1, 0.05), ((1, 3, 3), 0, 0.05), ((1, 190, 260), 90, 0.05),
+         ((1, 192, 192), 20, 1e-4)]
 
 
 @pytest.fixture
@@ -87,7 +93,11 @@ def test_wrapper_checks(device):
 
 
 WARP_CASES = [((1, 12, 20, 3), (10, 16)), ((8, 48, 160, 3), (48, 160)),
-              ((2, 33, 70, 1), (37, 75)), ((3, 5, 7, 4), (64, 96))]
+              ((2, 33, 70, 1), (37, 75)), ((3, 5, 7, 4), (64, 96)),
+              # pixel counts that are no multiple of the 256-thread block, odd ones
+              # too, for C = 1, 3 (the compiled channel counts) and 4, 2 (the loop)
+              ((3, 33, 71, 3), (37, 75)), ((2, 9, 11, 1), (31, 33)), ((2, 20, 12, 4), (17, 19)),
+              ((1, 6, 1, 3), (5, 300)), ((2, 16, 24, 2), (16, 24)), ((8, 96, 320, 3), (96, 320))]
 
 
 def _warp_inputs(shape, out_hw, device):
@@ -97,7 +107,7 @@ def _warp_inputs(shape, out_hw, device):
     image = torch.rand(shape, generator=gen)
     coords = (torch.rand((b, ho, wo, 2), generator=gen) * 2 - 1) * 1.4
     coords[0, 0, :9] = torch.tensor([[-1., -1.], [1., 1.], [-1., 1.], [1., -1.], [0., 0.],
-                                     [2. * 3 / (w - 1) - 1, 2. * 2 / (h - 1) - 1],
+                                     [2. * 3 / max(w - 1, 1) - 1, 2. * 2 / (h - 1) - 1],
                                      [5., 5.], [-5., 0.], [0.5, -7.]])
     grad = torch.randn((b, ho, wo, c), generator=gen)
     return image.to(device), coords.to(device), grad.to(device)
@@ -140,6 +150,34 @@ def test_warp_wrapper_checks(device):
         warp.warp_fwd_cuda(image, coords.cpu())
     with pytest.raises(ValueError):
         warp.warp_bwd_cuda(image, coords, torch.rand(2, 6, 8, 1, device=device))
-    # the entry point casts and lays out what the kernels need
+    # the entry point casts and lays out what the kernels need, and returns
+    # the dtype the inputs promote to, as the plain version does on the CPU
     out = warp.grid_sample(image.double().transpose(1, 2), coords.double().transpose(1, 2))
-    assert out.shape == (2, 8, 6, 3) and out.dtype == torch.float32
+    assert out.shape == (2, 8, 6, 3) and out.dtype == torch.float64
+    for im_t, co_t in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)):
+        got = warp.grid_sample(image.to(im_t), coords.to(co_t))
+        want = warp.grid_sample_plain(image.cpu().to(im_t), coords.cpu().to(co_t))
+        assert got.dtype == want.dtype == torch.promote_types(im_t, co_t)
+
+
+def test_forward_statistics_feed_the_backward(device):
+    """m is the largest logit and s the sum of exp(logit - m) over the
+    window, as the backward kernel reads them."""
+    gen = torch.Generator().manual_seed(4)
+    d, r = _unit(gen, (2, 3, 30, 40), device), _unit(gen, (2, 3, 30, 40), device)
+    for temperature in (0.05, 1e-4):
+        _, _, m, s = sa.softargmax_fwd_cuda(d, r, temperature, 4)
+        k = 9
+        sy = (torch.arange(30, device=device) - 4).clamp(0, 30 - k)
+        sx = (torch.arange(40, device=device) - 4).clamp(0, 40 - k)
+        kk = torch.arange(k, device=device)
+        win = r.permute(0, 2, 3, 1)[:, (sy[:, None] + kk)[:, None, :, None],
+                                    (sx[:, None] + kk)[None, :, None, :]]
+        logits = torch.einsum("bchw,bhwyxc->bhwyx", d, win).double() / temperature
+        m_ref = logits.amax(dim=(3, 4))
+        s_ref = torch.exp(logits - m_ref[..., None, None]).sum(dim=(3, 4))
+        # float32 logits of magnitude 1/T carry a rounding of 6e-8 / T
+        assert (m.double() - m_ref).abs().max().item() <= 4e-7 / temperature
+        assert ((s.double() - s_ref).abs() / s_ref).max().item() <= (1e-4 if temperature > 1e-3 else 5e-2)
+        assert (s >= 1.0).all()

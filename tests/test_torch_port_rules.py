@@ -8,9 +8,13 @@
   and KITTI dicts with configs/train_omnicam.yaml and configs/train_kitti.yaml,
   the synthetic dataset sample for sample;
 - the package calls no library warp: no source of it mentions
-  ``F.grid_sample``.
+  ``F.grid_sample``;
+- every ``extern "C"`` launcher of ``csrc/*.cu`` has its ctypes argument
+  types in ``ops/_cuda.SIGNATURES``, kind by kind in order (a mismatch would
+  cut a pointer to 32 bits, which no CPU run could see otherwise).
 """
 
+import ctypes
 import pathlib
 import re
 import subprocess
@@ -30,6 +34,7 @@ from packnet_sfm_tpu_torch.core.config import (
 from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset, collate_train_batch
 from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.engine.factory import setup_model
+from packnet_sfm_tpu_torch.ops import _cuda
 from packnet_sfm_tpu_torch.ops import softargmax as sa
 from packnet_sfm_tpu_torch.ops import warp
 
@@ -133,6 +138,43 @@ def test_no_source_of_the_package_calls_a_library_warp():
         assert "functional.grid_sample" not in src, path
         assert "affine_grid" not in src, path
     assert (PKG / "csrc" / "warp.cu").exists()
+
+
+def _declared_launchers(source: str):
+    """{name: [ctypes kind of each parameter]} of a source's ``extern "C" int``
+    functions, from their declarations as text."""
+    found = {}
+    for name, params in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{', source):
+        kinds = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            if "*" in param:
+                kinds.append(ctypes.c_void_p)
+            elif re.match(r"(const )?int\b", param):
+                kinds.append(ctypes.c_int)
+            elif re.match(r"(const )?float\b", param):
+                kinds.append(ctypes.c_float)
+            else:
+                raise AssertionError(f"{name}: parameter {param!r} has no ctypes kind here")
+        found[name] = kinds
+    return found
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")), ids=lambda p: p.name)
+def test_launcher_signatures_match_the_sources(path):
+    declared = _declared_launchers(path.read_text())
+    assert declared, path
+    assert set(declared) == set(_cuda.SIGNATURES[path.stem])
+    for name, kinds in declared.items():
+        assert _cuda.SIGNATURES[path.stem][name] == kinds, name
+
+
+def test_signature_parser_sees_a_mismatch():
+    src = 'extern "C" int f(const float* a, float* b,\n int n, float t, void* stream) {'
+    assert _declared_launchers(src) == {"f": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                              ctypes.c_float, ctypes.c_void_p]}
+    with pytest.raises(AssertionError):
+        _declared_launchers('extern "C" int g(long long n) {')
 
 
 def test_kitti_matches_the_yaml():

@@ -8,9 +8,23 @@ the sharp softmax turns f32 rounding of the logits into larger coordinate
 shifts; gradients 1e-3, the distance both f32 forms sit from the f64 truth.
 ``generic_project`` with the downsample detour: 1e-4.
 
+The forward kernel's cut-off (it takes no exponential of a window position
+whose logit lies more than CUTOFF of csrc/softargmax.cu, and in a second
+case the 87.3 of float32 underflow, below the pixel's largest) is written out in
+plain PyTorch here and held to the uncut softmax: in float64 it changes
+nothing above 1e-6 px, against its own uncut form and against the plain
+version's formulation run in float64; in float32 it agrees with the plain version within
+2e-5 px at T = 0.05, a few float32 roundings of coordinates up to 50 (the
+sums run in another order than torch.softmax's), and within 2e-2 px at
+T = 1e-4, where the two forms' logits (magnitudes up to 1e4, float32 spacing
+1e-3) round differently and near-tied positions trade weight.
+
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 and chip_smoke.py hold them to the plain version there.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -106,3 +120,99 @@ def test_generic_project_matches_jax_xla():
     assert tuple(out.shape) == (B, 2 * H, 2 * W, 2)
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out, out_plain, rtol=0, atol=0)
+
+
+def _kernel_cutoff():
+    src = (pathlib.Path(__file__).resolve().parents[1] / "packnet_sfm_tpu_torch" / "csrc"
+           / "softargmax.cu").read_text()
+    return float(re.search(r"constexpr float CUTOFF = ([0-9.]+)f;", src).group(1))
+
+
+def _two_pass_cutoff(direction, rays, temperature, patch, cutoff):
+    """The forward kernel's algorithm in plain PyTorch, in the inputs' dtype:
+    pass 1 the largest logit of each clamped window, pass 2 the sums over the
+    positions within ``cutoff`` of it (``cutoff=None``: over all of them)."""
+    b, _, h, w = direction.shape
+    k = 2 * patch + 1
+    kk = torch.arange(k)
+    sy = (torch.arange(h) - patch).clamp(0, h - k)
+    sx = (torch.arange(w) - patch).clamp(0, w - k)
+    rows = (sy[:, None] + kk[None, :])[:, None, :, None]             # [h, 1, k, 1]
+    cols = (sx[:, None] + kk[None, :])[None, :, None, :]             # [1, w, 1, k]
+    win = rays.permute(0, 2, 3, 1)[:, rows, cols]                    # [B, h, w, k, k, 3]
+    logits = torch.einsum("bhwc,bhwyxc->bhwyx", direction.permute(0, 2, 3, 1), win) / temperature
+    m = logits.amax(dim=(3, 4), keepdim=True)
+    z = logits - m
+    e = torch.exp(z)
+    if cutoff is not None:
+        e = torch.where(z >= -cutoff, e, torch.zeros_like(e))
+    s = e.sum(dim=(3, 4))
+    cx = cols.to(e.dtype).reshape(1, 1, w, 1, k)
+    cy = rows.to(e.dtype).reshape(1, h, 1, k, 1)
+    return (e * cx).sum(dim=(3, 4)) / s, (e * cy).sum(dim=(3, 4)) / s, (z < -cutoff
+                                                                        if cutoff else z < z).sum()
+
+
+@pytest.mark.parametrize("cutoff", ["kernel", 87.3])
+@pytest.mark.parametrize("temperature", [0.05, 1e-4], ids=["T0.05", "T1e-4"])
+@pytest.mark.parametrize("patch,hw", [(4, (24, 48)), (20, (44, 50))], ids=["p4", "p20"])
+def test_cutoff_two_pass_equals_the_plain_softmax(patch, hw, temperature, cutoff):
+    cutoff = _kernel_cutoff() if cutoff == "kernel" else cutoff
+    assert 30.0 <= cutoff <= 87.3
+    rng = np.random.default_rng(5)
+    direction = torch.from_numpy(_unit(rng, (1, 3) + hw))
+    rays = torch.from_numpy(_unit(rng, (1, 3) + hw))
+    # float64: dropping the positions below the cut-off changes nothing
+    ex_c, ey_c, dropped = _two_pass_cutoff(direction.double(), rays.double(), temperature, patch,
+                                           cutoff)
+    ex_a, ey_a, _ = _two_pass_cutoff(direction.double(), rays.double(), temperature, patch, None)
+    assert (ex_c - ex_a).abs().max().item() <= 1e-6
+    assert (ey_c - ey_a).abs().max().item() <= 1e-6
+    # at the path's temperature nearly every position is dropped, at 0.05 none
+    n = dropped.item() / ex_c.numel() / (2 * patch + 1) ** 2
+    assert n > 0.9 if temperature < 1e-3 else n == 0.0
+    # float32: the cut two-pass form against the plain version
+    ex, ey, _ = _two_pass_cutoff(direction, rays, temperature, patch, cutoff)
+    ex_p, ey_p = softargmax_coords_plain(direction, rays, temperature, patch)
+    tol = 2e-5 if temperature > 1e-3 else 2e-2
+    assert (ex - ex_p).abs().max().item() <= tol
+    assert (ey - ey_p).abs().max().item() <= tol
+
+
+def _plain_in(dtype, direction, rays, temperature, patch):
+    """``softargmax_coords_plain``'s formulation (dense window logits, one
+    ``torch.softmax``, expectation by matrix product) computed in ``dtype``:
+    the plain version itself computes in float32 whatever it is given."""
+    b, _, h, w = direction.shape
+    k = 2 * patch + 1
+    kk = torch.arange(k)
+    sy = (torch.arange(h) - patch).clamp(0, h - k)
+    sx = (torch.arange(w) - patch).clamp(0, w - k)
+    dirs = direction.permute(0, 2, 3, 1).to(dtype)
+    rows = rays.permute(0, 2, 3, 1).to(dtype)[:, sy[:, None] + kk[None, :]]
+    win = rows[:, :, :, sx[:, None] + kk[None, :]]                   # [B, h, k, w, k, 3]
+    logits = torch.einsum("brwc,brywxc->brwyx", dirs, win)
+    prob = torch.softmax(logits.reshape(b, h, w, k * k) / temperature, dim=-1)
+    prob = prob.reshape(b, h, w, k, k)
+    kf = kk.to(dtype)
+    return (prob.sum(3) @ kf + sx.to(dtype)[None, None, :],
+            prob.sum(4) @ kf + sy.to(dtype)[None, :, None])
+
+
+@pytest.mark.parametrize("cutoff", ["kernel", 87.3])
+@pytest.mark.parametrize("temperature", [0.05, 1e-4], ids=["T0.05", "T1e-4"])
+@pytest.mark.parametrize("patch,hw", [(4, (24, 48)), (20, (44, 50))], ids=["p4", "p20"])
+def test_cutoff_two_pass_equals_the_plain_version_in_float64(patch, hw, temperature, cutoff):
+    cutoff = _kernel_cutoff() if cutoff == "kernel" else cutoff
+    rng = np.random.default_rng(5)
+    direction = torch.from_numpy(_unit(rng, (1, 3) + hw))
+    rays = torch.from_numpy(_unit(rng, (1, 3) + hw))
+    # the float64 formulation is the plain version's: in float32 it is the same
+    ex_p, ey_p = softargmax_coords_plain(direction, rays, temperature, patch, row_chunk=hw[0])
+    ex_f, ey_f = _plain_in(torch.float32, direction, rays, temperature, patch)
+    torch.testing.assert_close(ex_f, ex_p, rtol=0, atol=0)
+    torch.testing.assert_close(ey_f, ey_p, rtol=0, atol=0)
+    ex_c, ey_c, _ = _two_pass_cutoff(direction.double(), rays.double(), temperature, patch, cutoff)
+    ex_d, ey_d = _plain_in(torch.float64, direction, rays, temperature, patch)
+    assert (ex_c - ex_d).abs().max().item() <= 1e-6
+    assert (ey_c - ey_d).abs().max().item() <= 1e-6

@@ -114,6 +114,24 @@ def test_d_coords_come_back_in_the_coords_dtype():
     assert co32.grad.dtype == torch.float32
 
 
+@pytest.mark.parametrize("image_dtype,coords_dtype", [
+    ("bfloat16", "float32"), ("float32", "bfloat16"), ("bfloat16", "bfloat16"),
+    ("float16", "float32"), ("float32", "float32")])
+def test_result_dtype_is_the_promoted_dtype_as_in_jax(image_dtype, coords_dtype):
+    """The result comes back in the dtype the image's and the coordinates'
+    promote to, as the JAX function's does (the card path casts its float32
+    result back to it; tests/test_torch_cuda.py pins that on the card)."""
+    image, coords, _ = _inputs(seed=3, spread=0.9, special=False)
+    want = jwarp.grid_sample(jnp.asarray(image, getattr(jnp, image_dtype)),
+                             jnp.asarray(coords, getattr(jnp, coords_dtype))).dtype
+    im = torch.from_numpy(image).to(getattr(torch, image_dtype))
+    co = torch.from_numpy(coords).to(getattr(torch, coords_dtype))
+    for fn in (twarp.grid_sample, twarp.grid_sample_plain, twarp.grid_sample_data):
+        got = fn(im, co).dtype
+        assert got == torch.promote_types(im.dtype, co.dtype)
+        assert str(got).removeprefix("torch.") == str(want)
+
+
 def test_warp_argument_checks():
     image, coords, _ = _inputs()
     im, co = torch.from_numpy(image), torch.from_numpy(coords)
