@@ -8,13 +8,16 @@
 // border-clamped k x k window (k = 2p+1, window start sy = clamp(y-p, 0, h-k),
 // sx = clamp(x-p, 0, w-k)) of logit = dot(dir[b,:,y,x], ray[b,:,wy,wx]) / T.
 // The forward writes the expected window coordinates ex, ey and the softmax
-// statistics m (max logit) and s (sum of exp(logit - m)). The backward
-// replays the window with the saved m, s: with
-//   wgt = e * (gx * (cx - ex) + gy * (cy - ey)),  e = exp(logit - m),
+// statistics: m, the window's largest dot (the largest logit times T, kept in
+// dot units so that the backward reads back exactly what pass 2 subtracted),
+// and s, the sum of exp(logit - largest logit). The backward replays the
+// windows with the saved m, s: for pixel q and ray position r of its window,
+//   wgt(q, r) = e * (gx * (rx - ex) + gy * (ry - ey)),  e = exp((dot - m) / T),
 //   gx = gex / (s T), gy = gey / (s T),
-// it accumulates d_dir += wgt * ray in registers and scatters
-// d_ray += wgt * dir into a zeroed [B,3,h,w] buffer with atomicAdd, so the
-// summation order of d_ray changes from run to run.
+//   d_dir[q] = sum over r of wgt(q, r) * ray[r],
+//   d_ray[r] = sum over the q whose window holds r of wgt(q, r) * dir[q].
+// Both sums are gathers with one fixed order: no atomics, every element of
+// both outputs written once, the same bits on every call.
 //
 // What bounds it on an H100. At the NRS path's shape (h = w = 192, p = 20)
 // a call evaluates 192 * 192 * 41 * 41 = 62 M window positions over 1.5 MB
@@ -56,19 +59,44 @@
 // instruction-level parallelism); keeping every row's largest dot to skip
 // rows in pass 2; each warp copying only the rows it reads itself, a copy
 // group per row, to start on the first while the others are in flight.
-// The backward keeps its first design: 32 neighbouring pixels of a row per
-// warp read the rays through L1, each pixel's rows are split over TY = 8
-// threads, and positions whose weight underflows to zero skip their three
-// atomics. Its redesign, and a deterministic gather for d_ray, are left
-// for a later change.
+//
+// Design of the backward. One launch; a block's role comes from blockIdx.y.
+// - d_dir role (pixel-owned): the forward's pass 2 with other accumulators.
+//   32 x SB_R pixels a block, the union of their windows staged with
+//   stage_rays, the same dot3, the same cut-off against m, and for the pairs
+//   that pass the weight and three multiply-adds.
+// - d_ray role (ray-owned), the transpose: 32 x SB_R ray positions a block.
+//   A thread keeps its SB_R rays in registers and scans the pixels whose
+//   windows hold them: along an axis those are the interval
+//   [win_lo(r), win_hi(r)], 3p + 1 long near a border, where windows are
+//   pushed inwards. The pixels' (d0, d1, d2, m) are staged as one float4
+//   each (one 16-byte shared load a pixel), and (gx, gy, ex, ey) as a second
+//   float4 that only the pairs that pass read. The lanes of a warp have
+//   intervals of different lengths near a border: the scan runs to the
+//   longest and masks the others. A pixel row that holds all SB_R rays of
+//   the thread (all but the first and last few) takes one threshold for them.
+// - The ray role's blocks come first in the grid: its border tiles scan up
+//   to 2.2 times the pairs of an interior tile, and the shorter d_dir blocks
+//   fill the end. Both roles only read the forward's statistics, so they
+//   share the SMs freely.
+// - SB_TY = 12 warps a block, two blocks an SM (up to 85 registers), 99 KB of
+//   staging each: at p = 20 an interior ray tile's pixels (72 x 43 x 32 B)
+//   fit in one piece.
+// Measured alternatives that lost (PERF.md): the pairs' (gx, gy, ex, ey)
+// through __ldg instead of staged; 2 or 4 rows a thread in either role; 4
+// to 16 warps a block at 6 to 2 blocks an SM; the d_dir role first; two
+// groups of warps with their own ray rows over one staged union; two pixels
+// a branch; a warp-uniform branch by vote.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
-constexpr int TX = 32;  // pixels of one row per block (one warp)
-constexpr int TY = 8;   // threads sharing one pixel's window rows
+constexpr int TX = 32;  // pixels (or rays) of one row per block (one warp)
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -79,6 +107,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // share a column's window rows.
 constexpr int SA_R = 3;
 constexpr int SA_TY = 8;
+// Backward tiling, both roles: a block takes TX x SB_R pixels (d_dir) or ray
+// positions (d_ray); a thread owns SB_R vertically adjacent ones, and the
+// SB_TY warps share the rows of what the block stages. Two blocks an SM.
+constexpr int SB_R = 3;
+constexpr int SB_TY = 12;
+static_assert(SB_TY >= 3, "a warp per channel merges the partial sums");
 // A window position whose logit lies further than this below the pixel's
 // largest has a weight under exp(-40) = 4e-18 against s >= 1: adding it
 // changes no float32 sum (half a unit in the last place of 1 is 6e-8), the
@@ -104,10 +138,11 @@ __device__ __forceinline__ float ex2(float x) {
 
 // tile: the rows [row0, row0 + nrows) of the block's window union, three
 // planes of `pstride` floats with rows of `S` floats, columns [ux, ux + uw).
+template <int NTY>
 __device__ __forceinline__ void stage_rays(float* tile, const float* __restrict__ rb,
                                            size_t plane, int w, int row0, int nrows,
                                            int ux, int uw, int S, int pstride) {
-  for (int rr = threadIdx.y; rr < nrows; rr += SA_TY) {
+  for (int rr = threadIdx.y; rr < nrows; rr += NTY) {
     const float* g = rb + (size_t)(row0 + rr) * w + ux;
     float* t = tile + rr * S;
     for (int cc = threadIdx.x; cc < uw; cc += TX) {
@@ -122,7 +157,7 @@ __device__ __forceinline__ void stage_rays(float* tile, const float* __restrict_
 
 // chunk_rows: rows of the window union staged at a time (all of them where
 // they fit the shared-memory budget). Dynamic shared memory: the tile,
-// 3 * chunk_rows * (TX + k - 1) floats.
+// 3 * chunk_rows * (TX + k - 1) floats. m goes out in dot units.
 __global__ void __launch_bounds__(TX * SA_TY)
 softargmax_fwd_kernel(const float* __restrict__ dir,
                       const float* __restrict__ rays,
@@ -170,7 +205,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
   for (int c0 = 0; c0 < uh; c0 += chunk_rows) {
     const int nr = min(chunk_rows, uh - c0);
     if (c0 > 0) __syncthreads();
-    stage_rays(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
+    stage_rays<NTY>(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
     __syncthreads();
     for (int u = c0 + ty; u < c0 + nr; u += NTY) {
       const float* t0 = tile + (u - c0) * S + sxl;
@@ -213,7 +248,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
     const int nr = min(chunk_rows, uh - c0);
     if (uh > chunk_rows) {  // else the whole union is still staged
       __syncthreads();
-      stage_rays(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
+      stage_rays<NTY>(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
       __syncthreads();
     }
     for (int u = c0 + ty; u < c0 + nr; u += NTY) {
@@ -273,87 +308,333 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
       const float denom = fmaxf(ss, 1e-30f);
       ex[o] = sx_ / denom;
       ey[o] = sy_ / denom;
-      mo[o] = m[r] * inv_t;
+      mo[o] = m[r];
       so[o] = ss;
     }
   }
 }
 
-__global__ void __launch_bounds__(TX * TY)
+// ---------------------------------------------------------------------------
+// Backward. Two roles, both gathers; a block's role comes from blockIdx.y.
+
+// Along an axis of length n, the pixels whose clamped window holds ray
+// position r are the interval [win_lo, win_hi]: windows near a border are
+// pushed inwards, so it is 3p + 1 long at r = 2p, not k, and the whole axis
+// where both borders are in reach (n <= 4p + 1)
+// (ops/softargmax.transposed_window_bounds is the same formula).
+__device__ __forceinline__ int win_lo(int r, int p) { return r <= 2 * p ? 0 : r - p; }
+__device__ __forceinline__ int win_hi(int r, int p, int n) {
+  return r >= n - (2 * p + 1) ? n - 1 : r + p;
+}
+
+// gx or gy: the upstream gradient with 1 / (T s) folded in.
+__device__ __forceinline__ float fold_grad(float g, float s, float inv_t) {
+  return g / fmaxf(s, 1e-30f) * inv_t;
+}
+
+// The warps' partial sums of three accumulators per pixel (or ray), merged
+// in one fixed order and written to the three planes of `out`.
+template <int R>
+__device__ __forceinline__ void merge_and_store(float (*part)[SB_TY][R][TX],
+                                                const float (&a0)[R], const float (&a1)[R],
+                                                const float (&a2)[R], float* out,
+                                                size_t plane, int h, int w, int x0, int y0) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    part[0][ty][r][tx] = a0[r];
+    part[1][ty][r][tx] = a1[r];
+    part[2][ty][r][tx] = a2[r];
+  }
+  __syncthreads();
+  // warp c sums channel c of every pixel of the tile
+  if (ty < 3 && x0 + tx < w) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (y0 + r >= h) break;
+      float sum = 0.f;
+      for (int j = 0; j < SB_TY; ++j) sum += part[ty][j][r][tx];
+      out[ty * plane + (size_t)(y0 + r) * w + x0 + tx] = sum;
+    }
+  }
+}
+
+// d_dir role: the block owns a tile of 32 x R pixels and replays their
+// windows as the forward's pass 2 does, over the staged union of rays.
+template <int R>
+__device__ __forceinline__ void bwd_dir_role(
+    float* tile, float (*part)[SB_TY][R][TX], const float* __restrict__ db,
+    const float* __restrict__ rb, const float* __restrict__ ex,
+    const float* __restrict__ ey, const float* __restrict__ mi,
+    const float* __restrict__ si, const float* __restrict__ gex,
+    const float* __restrict__ gey, float* __restrict__ ddir_b, int h, int w, int p,
+    float inv_t, float cut, int ytile, int chunk_rows) {
+  constexpr int NTY = SB_TY;
+  const int k = 2 * p + 1;
+  const int S = TX + k - 1, pstride = chunk_rows * S;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int x0 = blockIdx.x * TX, y0 = ytile * R;
+  const size_t plane = (size_t)h * w;
+
+  const int ux = clampi(x0 - p, 0, w - k);
+  const int uw = clampi(min(x0 + TX - 1, w - 1) - p, 0, w - k) + k - ux;
+  const int uy = clampi(y0 - p, 0, h - k);
+  const int uh = clampi(min(y0 + R - 1, h - 1) - p, 0, h - k) + k - uy;
+
+  // A thread past the image's edge repeats the edge pixel and stores nothing.
+  const int x = min(x0 + tx, w - 1);
+  const int sxl = clampi(x - p, 0, w - k) - ux;
+  float d0[R], d1[R], d2[R], m[R], thr[R], gx[R], gy[R], exv[R], eyv[R];
+  float a0[R], a1[R], a2[R];
+  int syl[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int y = min(y0 + r, h - 1);
+    const size_t o = (size_t)y * w + x;
+    d0[r] = db[o], d1[r] = db[plane + o], d2[r] = db[2 * plane + o];
+    m[r] = mi[o];
+    thr[r] = m[r] - cut;
+    gx[r] = fold_grad(gex[o], si[o], inv_t);
+    gy[r] = fold_grad(gey[o], si[o], inv_t);
+    exv[r] = ex[o], eyv[r] = ey[o];
+    syl[r] = clampi(y - p, 0, h - k) - uy;
+    a0[r] = a1[r] = a2[r] = 0.f;
+  }
+
+  const float scale = inv_t * LOG2E;
+  for (int c0 = 0; c0 < uh; c0 += chunk_rows) {
+    const int nr = min(chunk_rows, uh - c0);
+    if (c0 > 0) __syncthreads();
+    stage_rays<NTY>(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
+    __syncthreads();
+    for (int u = c0 + ty; u < c0 + nr; u += NTY) {
+      const float* t0 = tile + (u - c0) * S + sxl;
+      const float cy = (float)(uy + u);
+      float tr[R], yc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        tr[r] = (unsigned)(u - syl[r]) < (unsigned)k ? thr[r] : 3e38f;
+        yc[r] = gy[r] * (cy - eyv[r]);
+      }
+      float cx = (float)(ux + sxl);
+#pragma unroll 4
+      for (int dx = 0; dx < k; ++dx) {
+        const float v0 = t0[dx], v1 = t0[pstride + dx], v2 = t0[2 * pstride + dx];
+        float dot[R];
+        bool any = false;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          dot[r] = dot3(d0[r], d1[r], d2[r], v0, v1, v2);
+          any |= dot[r] >= tr[r];
+        }
+        if (any) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (dot[r] >= tr[r]) {
+              const float e = ex2((dot[r] - m[r]) * scale);
+              const float wgt = e * fmaf(gx[r], cx - exv[r], yc[r]);
+              a0[r] = fmaf(wgt, v0, a0[r]);
+              a1[r] = fmaf(wgt, v1, a1[r]);
+              a2[r] = fmaf(wgt, v2, a2[r]);
+            }
+          }
+        }
+        cx += 1.f;
+      }
+    }
+  }
+  merge_and_store<R>(part, a0, a1, a2, ddir_b, plane, h, w, x0, y0);
+}
+
+// One pixel of the d_ray role's scan against the thread's R rays.
+// q = (d0, d1, d2, m) of the pixel; *pp = (gx, gy, ex, ey) of it, read only
+// where a pair counts. cutr[r] is the cut-off where the pixel's row holds ray
+// r, else -3e38 (no pair counts); ALL_ROWS says that all R rows hold, so one
+// threshold serves them. lane_ok is false past the lane's interval of pixels.
+template <int R, bool ALL_ROWS>
+__device__ __forceinline__ void ray_step(const float4 q, const float4* pp, bool lane_ok,
+                                         const float (&cutr)[R], const float (&v0)[R],
+                                         const float (&v1)[R], const float (&v2)[R],
+                                         const float (&cyr)[R], float cxr, float scale,
+                                         float (&a0)[R], float (&a1)[R], float (&a2)[R]) {
+  const float qm = lane_ok ? q.w : 3e38f;
+  float dot[R];
+  bool pass[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    dot[r] = dot3(q.x, q.y, q.z, v0[r], v1[r], v2[r]);
+    pass[r] = dot[r] >= qm - (ALL_ROWS ? cutr[0] : cutr[r]);
+    any |= pass[r];
+  }
+  if (any) {
+    const float4 g = *pp;
+    const float xc = g.x * (cxr - g.z);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (pass[r]) {
+        const float e = ex2((dot[r] - q.w) * scale);
+        const float wgt = e * fmaf(g.y, cyr[r] - g.w, xc);
+        a0[r] = fmaf(wgt, q.x, a0[r]);
+        a1[r] = fmaf(wgt, q.y, a1[r]);
+        a2[r] = fmaf(wgt, q.z, a2[r]);
+      }
+    }
+  }
+}
+
+// d_ray role, the transpose: the block owns a tile of 32 x R ray positions;
+// a thread keeps its R rays in registers and scans the pixels whose windows
+// hold them. Those pixels' (d0, d1, d2, m) and (gx, gy, ex, ey) are staged
+// in shared memory as two arrays of float4, D and behind it P, `cap`
+// elements each, some rows of the pixel union at a time where it is larger
+// than that.
+template <int R>
+__device__ __forceinline__ void bwd_ray_role(
+    float4* tile, int cap, float (*part)[SB_TY][R][TX],
+    const float* __restrict__ db, const float* __restrict__ rb,
+    const float* __restrict__ ex, const float* __restrict__ ey,
+    const float* __restrict__ mi, const float* __restrict__ si,
+    const float* __restrict__ gex, const float* __restrict__ gey,
+    float* __restrict__ drays_b, int h, int w, int p, float inv_t, float cut, int ytile) {
+  constexpr int NTY = SB_TY, NT = TX * SB_TY;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int rx0 = blockIdx.x * TX, ry0 = ytile * R;
+  const size_t plane = (size_t)h * w;
+
+  // The pixel union of the tile's rays.
+  const int ux = win_lo(rx0, p);
+  const int uw = win_hi(min(rx0 + TX - 1, w - 1), p, w) - ux + 1;
+  const int uy = win_lo(ry0, p);
+  const int uh = win_hi(min(ry0 + R - 1, h - 1), p, h) - uy + 1;
+
+  // A thread past the edge repeats the edge ray and stores nothing. The
+  // lanes' intervals differ near a border: the scan runs to the longest of
+  // the warp and masks the lanes past their own.
+  const int rx = min(rx0 + tx, w - 1);
+  const int lxl = win_lo(rx, p) - ux;
+  const int nxl = win_hi(rx, p, w) - win_lo(rx, p) + 1;
+  const int nmin = __reduce_min_sync(0xffffffffu, nxl);
+  const int nmax = __reduce_max_sync(0xffffffffu, nxl);
+  const float cxr = (float)rx;
+  float v0[R], v1[R], v2[R], cyr[R], a0[R], a1[R], a2[R];
+  int lyl[R], nyl[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ry = min(ry0 + r, h - 1);
+    const size_t o = (size_t)ry * w + rx;
+    v0[r] = rb[o], v1[r] = rb[plane + o], v2[r] = rb[2 * plane + o];
+    cyr[r] = (float)ry;
+    lyl[r] = win_lo(ry, p) - uy;
+    nyl[r] = win_hi(ry, p, h) - win_lo(ry, p) + 1;
+    a0[r] = a1[r] = a2[r] = 0.f;
+  }
+
+  float4* D = tile;
+  float4* P = tile + cap;
+  int chunk_rows = cap / uw;
+  if (chunk_rows < uh && chunk_rows >= NTY) chunk_rows = chunk_rows / NTY * NTY;
+  const float ruw = 1.0f / (float)uw;
+  const float scale = inv_t * LOG2E;
+  for (int c0 = 0; c0 < uh; c0 += chunk_rows) {
+    const int nr = min(chunk_rows, uh - c0);
+    if (c0 > 0) __syncthreads();
+    // Staging: the chunk's pixels in one flat order, two of them a thread in
+    // flight (the last thread repeats the last pixel).
+    const int n = nr * uw;
+    for (int i0 = ty * TX + tx; i0 < n; i0 += 2 * NT) {
+      int idx[2];
+      float4 dv[2], pv[2];
+      float sv[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = min(i0 + u * NT, n - 1);
+        int row = (int)((float)i * ruw);  // i / uw, set right below
+        row -= row * uw > i;
+        row += (row + 1) * uw <= i;
+        const size_t o = (size_t)(uy + c0 + row) * w + ux + (i - row * uw);
+        idx[u] = i;
+        dv[u] = make_float4(db[o], db[plane + o], db[2 * plane + o], mi[o]);
+        pv[u] = make_float4(gex[o], gey[o], ex[o], ey[o]);
+        sv[u] = si[o];
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        D[idx[u]] = dv[u];
+        P[idx[u]] = make_float4(fold_grad(pv[u].x, sv[u], inv_t),
+                                fold_grad(pv[u].y, sv[u], inv_t), pv[u].z, pv[u].w);
+      }
+    }
+    __syncthreads();
+    for (int v = c0 + ty; v < c0 + nr; v += NTY) {
+      float cutr[R];
+      bool all_rows = true;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool holds = (unsigned)(v - lyl[r]) < (unsigned)nyl[r];
+        cutr[r] = holds ? cut : -3e38f;
+        all_rows &= holds;
+      }
+      const float4* drow = D + (v - c0) * uw + lxl;
+      const float4* prow = P + (v - c0) * uw + lxl;
+      // The next pixel is read while this one is evaluated. Past its
+      // interval a lane reads on into the next row, or into P behind the
+      // last one, and the mask drops what it read.
+      auto scan_row = [&](auto all) {
+        constexpr bool A = decltype(all)::value;
+        float4 qn = drow[0];
+#pragma unroll 4
+        for (int j = 0; j < nmin; ++j) {
+          const float4 q = qn;
+          qn = drow[j + 1];
+          ray_step<R, A>(q, prow + j, true, cutr, v0, v1, v2, cyr, cxr, scale, a0, a1, a2);
+        }
+#pragma unroll 4
+        for (int j = nmin; j < nmax; ++j) {
+          const float4 q = qn;
+          qn = drow[j + 1];
+          ray_step<R, A>(q, prow + j, j < nxl, cutr, v0, v1, v2, cyr, cxr, scale, a0, a1, a2);
+        }
+      };
+      if (all_rows)
+        scan_row(std::true_type{});
+      else
+        scan_row(std::false_type{});
+    }
+  }
+  merge_and_store<R>(part, a0, a1, a2, drays_b, plane, h, w, rx0, ry0);
+}
+
+// grid.y: first the d_ray role's `ray_tiles` tiles of SB_R ray rows (its
+// border tiles scan the most pairs, and the d_dir role's shorter blocks fill
+// the end), then the d_dir role's tiles of SB_R pixel rows. Dynamic shared
+// memory: the larger of the d_dir role's 3 * dir_chunk_rows * (TX + k - 1)
+// floats and the d_ray role's 2 * ray_cap float4, and 16 bytes that the
+// scans' reads ahead may touch.
+__global__ void __launch_bounds__(TX * SB_TY, 2)
 softargmax_bwd_kernel(const float* __restrict__ dir,
                       const float* __restrict__ rays,
                       const float* __restrict__ ex, const float* __restrict__ ey,
                       const float* __restrict__ mi, const float* __restrict__ si,
                       const float* __restrict__ gex, const float* __restrict__ gey,
                       float* __restrict__ ddir, float* __restrict__ drays,
-                      int h, int w, int p, float inv_t) {
-  const int k = 2 * p + 1;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x = blockIdx.x * TX + tx;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool active = x < w;
+                      int h, int w, int p, float inv_t, float cut, int ray_tiles,
+                      int dir_chunk_rows, int ray_cap) {
+  extern __shared__ float4 tile4[];
+  __shared__ float part[3][SB_TY][SB_R][TX];
   const size_t plane = (size_t)h * w;
-  const float* rb = rays + (size_t)b * 3 * plane;
-  float* drb = drays + (size_t)b * 3 * plane;
-  const size_t o = (size_t)b * plane + (size_t)y * w + x;
-
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  if (active) {
-    const float* db = dir + (size_t)b * 3 * plane + (size_t)y * w + x;
-    const float d0 = db[0], d1 = db[plane], d2 = db[2 * plane];
-    const float exv = ex[o], eyv = ey[o], mv = mi[o];
-    const float sv = fmaxf(si[o], 1e-30f);
-    // Fold 1/(T s) into the upstream grads: d logit_i = p_i * (...) / T.
-    const float gx = gex[o] / sv * inv_t;
-    const float gy = gey[o] / sv * inv_t;
-    const int sy = clampi(y - p, 0, h - k);
-    const int sx = clampi(x - p, 0, w - k);
-    for (int dy = ty; dy < k; dy += TY) {
-      const int row = sy + dy;
-      const size_t roff = (size_t)row * w + sx;
-      const float* r0 = rb + roff;
-      const float* r1 = r0 + plane;
-      const float* r2 = r1 + plane;
-      const float ycoef = gy * ((float)row - eyv);
-      for (int dx = 0; dx < k; ++dx) {
-        const float v0 = __ldg(r0 + dx), v1 = __ldg(r1 + dx), v2 = __ldg(r2 + dx);
-        const float logit = (d0 * v0 + d1 * v1 + d2 * v2) * inv_t;
-        const float e = expf(logit - mv);
-        const float wgt = e * (gx * ((float)(sx + dx) - exv) + ycoef);
-        if (wgt != 0.f) {
-          a0 += wgt * v0;
-          a1 += wgt * v1;
-          a2 += wgt * v2;
-          float* t = drb + roff + dx;
-          atomicAdd(t, wgt * d0);
-          atomicAdd(t + plane, wgt * d1);
-          atomicAdd(t + 2 * plane, wgt * d2);
-        }
-      }
-    }
-  }
-
-  __shared__ float part[3][TY][TX];
-  part[0][ty][tx] = a0;
-  part[1][ty][tx] = a1;
-  part[2][ty][tx] = a2;
-  __syncthreads();
-  if (ty == 0 && active) {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int j = 0; j < TY; ++j) {
-      s0 += part[0][j][tx];
-      s1 += part[1][j][tx];
-      s2 += part[2][j][tx];
-    }
-    float* dd = ddir + (size_t)b * 3 * plane + (size_t)y * w + x;
-    dd[0] = s0;
-    dd[plane] = s1;
-    dd[2 * plane] = s2;
-  }
+  const size_t o3 = (size_t)blockIdx.z * 3 * plane, o1 = (size_t)blockIdx.z * plane;
+  if ((int)blockIdx.y < ray_tiles)
+    bwd_ray_role<SB_R>(tile4, ray_cap, part, dir + o3, rays + o3, ex + o1, ey + o1, mi + o1,
+                       si + o1, gex + o1, gey + o1, drays + o3, h, w, p, inv_t, cut,
+                       (int)blockIdx.y);
+  else
+    bwd_dir_role<SB_R>(reinterpret_cast<float*>(tile4), part, dir + o3, rays + o3, ex + o1,
+                       ey + o1, mi + o1, si + o1, gex + o1, gey + o1, ddir + o3, h, w, p,
+                       inv_t, cut, (int)blockIdx.y - ray_tiles, dir_chunk_rows);
 }
 
-constexpr long long SMEM_BUDGET = 99 * 1024;  // of a forward block's staged rays
+constexpr long long SMEM_BUDGET = 99 * 1024;  // of what a block stages
 
 bool bad_shape(int b, int h, int w, int p) {
   const int k = 2 * p + 1;
@@ -363,7 +644,7 @@ bool bad_shape(int b, int h, int w, int p) {
 }  // namespace
 
 // All tensors are contiguous float32 on the device: dir, rays, ddir, drays
-// [b, 3, h, w]; ex, ey, m, s, gex, gey [b, h, w]. drays must be zeroed.
+// [b, 3, h, w]; ex, ey, m, s, gex, gey [b, h, w]; m is the window's largest dot, s the sum of exp((dot - m) / T).
 // Both launch on `stream` and return cudaGetLastError() (0 on success).
 
 extern "C" int softargmax_fwd(const float* dir, const float* rays, float* ex,
@@ -399,8 +680,29 @@ extern "C" int softargmax_bwd(const float* dir, const float* rays,
                               int p, float temperature, void* stream) {
   if (bad_shape(b, h, w, p) || !(temperature > 0.f)) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  const dim3 grid((w + TX - 1) / TX, h, b), block(TX, TY);
-  softargmax_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      dir, rays, ex, ey, m, s, gex, gey, ddir, drays, h, w, p, 1.0f / temperature);
+  const int k = 2 * p + 1;
+  // d_dir role: the window union of a block as the forward stages it.
+  const long long row_bytes = 3LL * (TX + k - 1) * sizeof(float);
+  int dir_chunk_rows = SB_R + k - 1;
+  if (dir_chunk_rows * row_bytes > SMEM_BUDGET) {
+    dir_chunk_rows = (int)(SMEM_BUDGET / row_bytes) / SB_TY * SB_TY;
+    if (dir_chunk_rows < SB_TY) return (int)cudaErrorInvalidValue;
+  }
+  // d_ray role: the pixel union of a tile reaches at most 2p past the tile
+  // on either side, at 32 bytes a pixel; at least one row of it must fit.
+  const long long uw_max = std::min((long long)w, (long long)TX + 4LL * p);
+  const long long uh_max = std::min((long long)h, (long long)SB_R + 4LL * p);
+  const long long ray_cap = std::min(uw_max * uh_max, SMEM_BUDGET / 32);
+  if (ray_cap < uw_max) return (int)cudaErrorInvalidValue;
+  const int tiles = (h + SB_R - 1) / SB_R;  // of either role
+  if (2 * tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int smem = 16 + (int)std::max(dir_chunk_rows * row_bytes, ray_cap * 32);
+  const cudaError_t err = cudaFuncSetAttribute(
+      softargmax_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((w + TX - 1) / TX, 2 * tiles, b), block(TX, SB_TY);
+  softargmax_bwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      dir, rays, ex, ey, m, s, gex, gey, ddir, drays, h, w, p, 1.0f / temperature,
+      CUTOFF * temperature, tiles, dir_chunk_rows, (int)ray_cap);
   return (int)cudaGetLastError();
 }

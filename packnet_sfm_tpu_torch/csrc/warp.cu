@@ -224,6 +224,8 @@ bool bad_shape(int b, int h, int w, int c, int ho, int wo) {
 
 long long blocks_for(long long n) { return (n + THREADS - 1) / THREADS; }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // All tensors are contiguous float32 on the device: image and d_image
@@ -269,5 +271,11 @@ extern "C" int warp_bwd(const float* image, const float* coords,
   warp_bwd_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       image, coords, grad_out, d_coords, d_image, n, ho * wo, h, w, c,
       padding);
+  return (int)cudaGetLastError();
+}
+
+// One warp that does nothing: the time no launch on the card can go under.
+extern "C" int launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

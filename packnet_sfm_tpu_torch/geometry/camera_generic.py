@@ -104,8 +104,8 @@ def view_synthesis_generic(
     return grid_sample(ref_image, ref_coords, padding_mode=padding_mode)
 
 
-def canonical_pinhole_rays(h: int, w: int, fov_deg: float = 90.0,
-                           device="cpu") -> torch.Tensor:
+def canonical_pinhole_rays(h: int, w: int, fov_deg: float = 90.0, *,
+                           device) -> torch.Tensor:
     """Canonical unit ray template [H, W, 3] from a centred pinhole, built in
     float64 with numpy and cast to float32."""
     f = 0.5 * w / np.tan(np.radians(fov_deg) / 2)

@@ -35,6 +35,7 @@ SIGNATURES = {
     "warp": {
         "warp_fwd": [_P] * 3 + [_I] * 7 + [_P],
         "warp_bwd": [_P] * 5 + [_I] * 7 + [_P],
+        "launch_floor": [_P],
     },
 }
 
@@ -54,6 +55,16 @@ def check_tensor(name: str, t: torch.Tensor, shape) -> None:
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the launchers take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch_floor(device) -> None:
+    """Launch a kernel that does nothing (``csrc/warp.cu``) on ``device``'s
+    current stream: what a measurement of the launch itself times."""
+    lib = load("warp")
+    with torch.cuda.device(device):
+        err = lib.launch_floor(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch_floor failed: cudaError {err}")
 
 
 def _nvcc() -> str:

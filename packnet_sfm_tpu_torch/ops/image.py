@@ -5,8 +5,8 @@ from __future__ import annotations
 import torch
 
 
-def image_grid(h: int, w: int, dtype=torch.float32, normalized: bool = False,
-               device="cpu") -> torch.Tensor:
+def image_grid(h: int, w: int, dtype=torch.float32, normalized: bool = False, *,
+               device) -> torch.Tensor:
     """Homogeneous pixel grid [H, W, 3] with entries (u, v, 1), unbatched."""
     ys = torch.arange(h, dtype=dtype, device=device)
     xs = torch.arange(w, dtype=dtype, device=device)

@@ -8,6 +8,12 @@ coordinates (ex, ey).
 - ``softargmax_coords``: the entry point. On CUDA tensors its forward and
   backward are the hand-written kernels of ``csrc/softargmax.cu``; on CPU
   tensors it is ``softargmax_coords_plain``. Any other device raises.
+  The forward saves m, the largest dot of each window (the largest logit
+  times T), and s, the sum of exp(logit - largest logit). The backward is
+  one launch of two gathers: d direction by pixel over its window, d rays
+  by ray position over the pixels whose windows hold it
+  (``transposed_window_bounds``). It uses no atomics and writes every
+  element once, so two calls on the same inputs return the same bits.
 - ``softargmax_coords_plain``: plain PyTorch (row-chunked dense window
   softmax, as the JAX package's XLA path), differentiated by autograd. The
   CPU tests and ``chip_smoke.py`` hold the kernels to it.
@@ -44,8 +50,27 @@ def _check_temperature(temperature) -> float:
     return float(temperature)
 
 
+def transposed_window_bounds(n: int, patch: int):
+    """Along an axis of length ``n``: for each ray position r, the first and
+    last pixel whose border-clamped window (start clamp(x - p, 0, n - k),
+    k = 2p + 1) holds r, as two int64 tensors [n]. The pixels between them
+    all hold r. Windows near a border are pushed inwards, so the interval is
+    not k long: 3p + 1 pixels hold the ray at 2p, and where n <= 4p + 1 some
+    rays are held by every pixel. The backward kernel's d rays role
+    gathers over these intervals (``win_lo``/``win_hi`` in
+    ``csrc/softargmax.cu``)."""
+    k = 2 * patch + 1
+    if patch < 0 or n < k:
+        raise ValueError(f"window {k} needs an axis of at least {k}, got {n}")
+    r = torch.arange(n)
+    lo = torch.where(r <= 2 * patch, torch.zeros_like(r), r - patch)
+    hi = torch.where(r >= n - k, torch.full_like(r, n - 1), r + patch)
+    return lo, hi
+
+
 def softargmax_fwd_cuda(direction, rays, temperature: float, patch: int):
-    """Forward kernel: direction, rays [B,3,h,w] -> ex, ey, m, s [B,h,w]."""
+    """Forward kernel: direction, rays [B,3,h,w] -> ex, ey, m, s [B,h,w];
+    m is the window's largest dot (not divided by T)."""
     from packnet_sfm_tpu_torch.ops import _cuda
 
     b, _, h, w = direction.shape
@@ -68,8 +93,9 @@ def softargmax_fwd_cuda(direction, rays, temperature: float, patch: int):
 
 def softargmax_bwd_cuda(direction, rays, temperature: float, patch: int,
                         ex, ey, m, s, gex, gey):
-    """Backward kernel: replays the windows with the saved (m, s) and returns
-    (d direction, d rays), both [B,3,h,w]."""
+    """Backward kernel: replays the windows with the forward's (m, s) and
+    returns (d direction, d rays), both [B,3,h,w], every element written
+    once by one launch."""
     from packnet_sfm_tpu_torch.ops import _cuda
 
     b, _, h, w = direction.shape
@@ -82,7 +108,7 @@ def softargmax_bwd_cuda(direction, rays, temperature: float, patch: int,
         _cuda.check_tensor(name, t, (b, h, w))
     lib = _cuda.load("softargmax")
     ddir = torch.empty_like(direction)
-    drays = torch.zeros_like(rays)
+    drays = torch.empty_like(rays)
     with torch.cuda.device(direction.device):
         err = lib.softargmax_bwd(direction.data_ptr(), rays.data_ptr(), ex.data_ptr(),
                                  ey.data_ptr(), m.data_ptr(), s.data_ptr(),

@@ -4,18 +4,24 @@ where there is no CUDA device; run there with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Shapes cover a width and a height that are not multiples of the forward's
-32 x 3 pixel tile, an image exactly one window tall and wide (every window
-clamped on all four borders), a window narrower than four positions, a
-window so large that its rays are staged in pieces, several batches and both
+Shapes cover a width and a height that are not multiples of the kernels'
+32 x 3 tile, an image exactly one window tall and wide (every window
+clamped on all four borders), widths and a height between k and 3p + 1
+(where the backward's interval of pixels that hold a ray is cut short by
+the image on both sides), a window narrower than four positions, a window
+so large that what a block stages goes in pieces, several batches and both
 temperatures.
 Tolerances (coordinates in pixels; gradients relative to their largest
-magnitude): T = 0.05, 2e-3 px and 1e-3; T = 1e-4, 0.1 px and 5e-2 — at
+magnitude): T = 0.05, 2e-3 px and 3e-4; T = 1e-4, 0.1 px and 5e-3 — at
 T = 1e-4 near-tied window positions turn the f32 rounding of the logits
 (which the kernel and the plain version sum in different orders) into
 weight changes of ~1e-3 between positions up to 40 px apart, where the
-gradients are largest (p(1-p)/T). d rays is summed with atomics, in an
-order that changes from run to run.
+gradients are largest (p(1-p)/T). Measured on an H100 over these cases:
+T = 0.05, 3.1e-5 px and 2.8e-5 at p <= 20; T = 1e-4, 0.015 px and 5.8e-4.
+The p = 90 case sums 32761 window positions a pixel and is given 1e-3
+(measured 3.8e-4 px and 3.7e-4). The backward sums d direction and d rays
+in one fixed order each (two gathers, no atomics): every case is run twice
+and both gradients must come back bit for bit the same.
 
 The warp cases cover both padding modes, one and several channels, an output
 grid of another size than the image, coordinates that leave the image on
@@ -39,7 +45,10 @@ CASES = [((2, 24, 48), 4, 0.05), ((1, 45, 70), 20, 0.05), ((1, 41, 41), 20, 0.05
          ((2, 64, 96), 20, 1e-4),
          ((3, 43, 77), 20, 0.05), ((3, 50, 45), 20, 1e-4), ((1, 41, 41), 20, 1e-4),
          ((2, 7, 35), 1, 0.05), ((1, 3, 3), 0, 0.05), ((1, 190, 260), 90, 0.05),
-         ((1, 192, 192), 20, 1e-4)]
+         ((1, 192, 192), 20, 1e-4),
+         # k <= w < 3p + 1, k <= h < 3p + 1, both, and a width just past 3p + 1
+         ((1, 64, 50), 20, 1e-4), ((2, 55, 96), 20, 0.05), ((1, 44, 60), 20, 1e-4),
+         ((1, 70, 62), 20, 0.05), ((2, 9, 8), 3, 0.05)]
 
 
 @pytest.fixture
@@ -62,7 +71,9 @@ def test_kernels_match_plain(device, bhw, patch, temperature):
     gen = torch.Generator().manual_seed(0)
     d, r = _unit(gen, (b, 3, h, w), device), _unit(gen, (b, 3, h, w), device)
     gx, gy = (torch.randn((b, h, w), generator=gen).to(device) for _ in range(2))
-    px_tol, grad_tol = (2e-3, 1e-3) if temperature >= 1e-2 else (0.1, 5e-2)
+    px_tol, grad_tol = (2e-3, 3e-4) if temperature >= 1e-2 else (0.1, 5e-3)
+    if patch > 20:
+        grad_tol = 1e-3         # 181 x 181 positions a sum: measured 3.7e-4
 
     before = dict(sa.launch_counts)
     dk, rk = d.clone().requires_grad_(), r.clone().requires_grad_()
@@ -80,6 +91,25 @@ def test_kernels_match_plain(device, bhw, patch, temperature):
     for got, want in ((dk.grad, dp.grad), (rk.grad, rp.grad)):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= grad_tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("bhw,patch,temperature", CASES)
+def test_backward_is_deterministic(device, bhw, patch, temperature):
+    b, h, w = bhw
+    gen = torch.Generator().manual_seed(0)
+    d, r = _unit(gen, (b, 3, h, w), device), _unit(gen, (b, 3, h, w), device)
+    gx, gy = (torch.randn((b, h, w), generator=gen).to(device) for _ in range(2))
+    ex, ey, m, s = sa.softargmax_fwd_cuda(d, r, temperature, patch)
+    first = sa.softargmax_bwd_cuda(d, r, temperature, patch, ex, ey, m, s, gx, gy)
+    first = [t.clone() for t in first]
+    # NaNs in what the allocator hands out next: the kernel must write it all
+    junk = [torch.full_like(d, float("nan")) for _ in range(4)]
+    del junk
+    second = sa.softargmax_bwd_cuda(d, r, temperature, patch, ex, ey, m, s, gx, gy)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.isfinite(c).all()
+        assert torch.equal(a, c)
 
 
 def test_wrapper_checks(device):
@@ -162,8 +192,9 @@ def test_warp_wrapper_checks(device):
 
 
 def test_forward_statistics_feed_the_backward(device):
-    """m is the largest logit and s the sum of exp(logit - m) over the
-    window, as the backward kernel reads them."""
+    """m is the largest dot of the window (the largest logit times T) and s
+    the sum of exp(logit - largest logit), as the backward kernel reads
+    them."""
     gen = torch.Generator().manual_seed(4)
     d, r = _unit(gen, (2, 3, 30, 40), device), _unit(gen, (2, 3, 30, 40), device)
     for temperature in (0.05, 1e-4):
@@ -177,7 +208,7 @@ def test_forward_statistics_feed_the_backward(device):
         logits = torch.einsum("bchw,bhwyxc->bhwyx", d, win).double() / temperature
         m_ref = logits.amax(dim=(3, 4))
         s_ref = torch.exp(logits - m_ref[..., None, None]).sum(dim=(3, 4))
-        # float32 logits of magnitude 1/T carry a rounding of 6e-8 / T
-        assert (m.double() - m_ref).abs().max().item() <= 4e-7 / temperature
+        # float32 dots of magnitude 1 carry a rounding of 6e-8: 6e-8 / T of a logit
+        assert (m.double() / temperature - m_ref).abs().max().item() <= 4e-7 / temperature
         assert ((s.double() - s_ref).abs() / s_ref).max().item() <= (1e-4 if temperature > 1e-3 else 5e-2)
         assert (s >= 1.0).all()

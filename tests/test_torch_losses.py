@@ -125,7 +125,7 @@ def test_generic_multiview_photometric_loss(reduce, automask):
 
     d, r = _t(inv).requires_grad_(), _t(res).requires_grad_()
     loss, metrics = tgp.generic_multiview_photometric_loss(
-        _t(img), [_t(c) for c in ctx], [d], r, canonical_pinhole_rays(h, w),
+        _t(img), [_t(c) for c in ctx], [d], r, canonical_pinhole_rays(h, w, device="cpu"),
         [_t(p) for p in poses], tgp.GenericPhotometricConfig(**kw), progress, temperature)
     loss.backward()
     _close(loss, l_j)
@@ -140,5 +140,5 @@ def test_generic_multiview_photometric_loss(reduce, automask):
 
 def test_blend_ray_surface_is_unit():
     res = _t(np.random.default_rng(3).normal(scale=0.1, size=(1, 8, 8, 3)).astype(np.float32))
-    rays = tgp.blend_ray_surface(canonical_pinhole_rays(8, 8), res, 0.5)
+    rays = tgp.blend_ray_surface(canonical_pinhole_rays(8, 8, device="cpu"), res, 0.5)
     torch.testing.assert_close(torch.linalg.norm(rays, dim=-1), torch.ones(1, 8, 8))

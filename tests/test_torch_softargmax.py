@@ -19,6 +19,18 @@ sums run in another order than torch.softmax's), and within 2e-2 px at
 T = 1e-4, where the two forms' logits (magnitudes up to 1e4, float32 spacing
 1e-3) round differently and near-tied positions trade weight.
 
+The backward kernel's formulation (two gathers: d direction by pixel over
+its window, d rays by ray position over the pixels whose windows hold it,
+``transposed_window_bounds``, both with the forward's cut-off) is written
+out in plain PyTorch too and held to autograd of the plain version's
+formulation: in float64 within 1e-8 of the largest gradient; in float32
+against autograd of ``softargmax_coords_plain`` within 1e-4 of the largest
+gradient at T = 0.05 (sums of up to 1681 float32 terms in another order;
+measured 1.7e-5) and within 5e-3 at T = 1e-4 (measured 7.7e-4), where the
+two forms' float32 logits round differently and near-tied positions trade
+weight, as in the forward; both float32 forms sit as far from the float64
+gradient as from each other.
+
 The CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
 and chip_smoke.py hold them to the plain version there.
 """
@@ -39,6 +51,7 @@ from packnet_sfm_tpu_torch.geometry.camera_generic import GenericCamera, generic
 from packnet_sfm_tpu_torch.ops.softargmax import (
     softargmax_coords,
     softargmax_coords_plain,
+    transposed_window_bounds,
 )
 
 torch.set_num_threads(1)
@@ -216,3 +229,105 @@ def test_cutoff_two_pass_equals_the_plain_version_in_float64(patch, hw, temperat
     ex_d, ey_d = _plain_in(torch.float64, direction, rays, temperature, patch)
     assert (ex_c - ex_d).abs().max().item() <= 1e-6
     assert (ey_c - ey_d).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("n,patch", [(192, 20), (96, 20), (82, 20), (81, 20), (70, 20), (61, 20),
+                                     (45, 20), (41, 20), (260, 90), (7, 1), (3, 0)])
+def test_transposed_window_bounds_match_brute_force(n, patch):
+    k = 2 * patch + 1
+    start = (torch.arange(n) - patch).clamp(0, n - k)                # window start of pixel x
+    r = torch.arange(n)
+    holds = (start[None, :] <= r[:, None]) & (r[:, None] < start[None, :] + k)    # [r, x]
+    lo, hi = transposed_window_bounds(n, patch)
+    x = torch.arange(n)[None, :]
+    # the pixels that hold r are exactly the interval [lo, hi]
+    assert torch.equal(holds, (lo[:, None] <= x) & (x <= hi[:, None]))
+    assert int(holds.sum()) == n * k
+    # 3p + 1 pixels hold the ray at 2p; all n do where a ray is in reach of both borders
+    assert int((hi - lo + 1).max()) == (n if n <= 4 * patch + 1 else 3 * patch + 1)
+    with pytest.raises(ValueError):
+        transposed_window_bounds(k - 1, patch)
+
+
+def _backward_two_gathers(direction, rays, gex, gey, temperature, patch, cutoff, row_chunk=8):
+    """The backward kernel's algorithm in plain PyTorch, in the inputs' dtype:
+    the forward's statistics (m in dot units, s, ex, ey, with the cut-off),
+    then d direction gathered by pixel over its window and d rays gathered by
+    ray position over the pixels of ``transposed_window_bounds``."""
+    b, _, h, w = direction.shape
+    k = 2 * patch + 1
+    cut = cutoff * temperature
+    kk = torch.arange(k)
+    sy = (torch.arange(h) - patch).clamp(0, h - k)
+    sx = (torch.arange(w) - patch).clamp(0, w - k)
+    rows = (sy[:, None] + kk[None, :])[:, None, :, None]             # [h, 1, k, 1]
+    cols = (sx[:, None] + kk[None, :])[None, :, None, :]             # [1, w, 1, k]
+    dirs = direction.permute(0, 2, 3, 1)                             # [B, h, w, 3]
+    rayt = rays.permute(0, 2, 3, 1)
+    win = rayt[:, rows, cols]                                        # [B, h, w, k, k, 3]
+    dot = torch.einsum("bhwc,bhwyxc->bhwyx", dirs, win)
+    m = dot.amax(dim=(3, 4))
+    counted = dot >= (m - cut)[..., None, None]
+    e = torch.where(counted, torch.exp((dot - m[..., None, None]) / temperature),
+                    torch.zeros_like(dot))
+    s = e.sum(dim=(3, 4))
+    cx, cy = cols.to(e.dtype), rows.to(e.dtype)
+    ex, ey = (e * cx).sum(dim=(3, 4)) / s, (e * cy).sum(dim=(3, 4)) / s
+    gx, gy = gex / (s * temperature), gey / (s * temperature)
+
+    def at(t):
+        return t[..., None, None]
+
+    # d direction: by pixel, over its window
+    wgt = e * (at(gx) * (cx - at(ex)) + at(gy) * (cy - at(ey)))
+    d_dir = torch.einsum("bhwyx,bhwyxc->bchw", wgt, win)
+
+    # d rays: by ray position (ry, rx), over the pixels [lo, hi] of both axes
+    lo_y, hi_y = transposed_window_bounds(h, patch)
+    lo_x, hi_x = transposed_window_bounds(w, patch)
+    jy, jx = torch.arange(int((hi_y - lo_y).max()) + 1), torch.arange(int((hi_x - lo_x).max()) + 1)
+    ys, xs = lo_y[:, None] + jy[None, :], lo_x[:, None] + jx[None, :]          # [h, ny], [w, nx]
+    ok_y, ok_x = ys <= hi_y[:, None], xs <= hi_x[:, None]
+    ys, xs = ys.clamp(max=h - 1), xs.clamp(max=w - 1)
+    d_ray = torch.zeros_like(rays)
+    for r0 in range(0, h, row_chunk):
+        yi = ys[r0:r0 + row_chunk][:, None, :, None]                 # [rc, 1, ny, 1]
+        xi = xs[None, :, None, :]                                    # [1, w, 1, nx]
+        ok = ok_y[r0:r0 + row_chunk][:, None, :, None] & ok_x[None, :, None, :]
+        dq = dirs[:, yi, xi]                                         # [B, rc, w, ny, nx, 3]
+        dotq = torch.einsum("brwyxc,brwc->brwyx", dq, rayt[:, r0:r0 + row_chunk])
+        mq = m[:, yi, xi]
+        counts = ok & (dotq >= mq - cut)
+        eq = torch.where(counts, torch.exp((dotq - mq) / temperature), torch.zeros_like(dotq))
+        rx = torch.arange(w).to(e.dtype)[None, None, :, None, None]
+        ry = torch.arange(r0, min(r0 + row_chunk, h)).to(e.dtype)[None, :, None, None, None]
+        wq = eq * (gx[:, yi, xi] * (rx - ex[:, yi, xi]) + gy[:, yi, xi] * (ry - ey[:, yi, xi]))
+        d_ray[:, :, r0:r0 + row_chunk] = torch.einsum("brwyx,brwyxc->bcrw", wq, dq)
+    return d_dir, d_ray
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("temperature", [0.05, 1e-4], ids=["T0.05", "T1e-4"])
+@pytest.mark.parametrize("patch,hw", [(4, (24, 48)), (20, (44, 50)), (20, (41, 41)),
+                                      (20, (45, 70)), (1, (7, 35)), (0, (3, 3))],
+                         ids=["p4", "p20", "p20-one-window", "p20-w70", "p1", "p0"])
+def test_backward_two_gathers_equal_autograd(patch, hw, temperature, dtype):
+    rng = np.random.default_rng(11)
+    direction = torch.from_numpy(_unit(rng, (1, 3) + hw))
+    rays = torch.from_numpy(_unit(rng, (1, 3) + hw))
+    gex, gey = (torch.from_numpy(rng.normal(size=(1,) + hw).astype(np.float32)) for _ in range(2))
+    d, r = direction.to(dtype).clone().requires_grad_(), rays.to(dtype).clone().requires_grad_()
+    if dtype == torch.float64:
+        ex, ey = _plain_in(dtype, d, r, temperature, patch)
+        tol = 1e-8
+    else:
+        ex, ey = softargmax_coords_plain(d, r, temperature, patch)
+        tol = 1e-4 if temperature > 1e-3 else 5e-3
+    ((ex * gex).sum() + (ey * gey).sum()).backward()
+    d_dir, d_ray = _backward_two_gathers(direction.to(dtype), rays.to(dtype), gex.to(dtype),
+                                         gey.to(dtype), temperature, patch, _kernel_cutoff())
+    for got, want in ((d_dir, d.grad), (d_ray, r.grad)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    if patch > 0:
+        assert d.grad.abs().max().item() > 0 and r.grad.abs().max().item() > 0

@@ -160,8 +160,9 @@ def test_intrinsics_helpers_match_jax():
     _close(tcam.scale_intrinsics(Kt, 0.25, 0.5), jcam.scale_intrinsics(K, 0.25, 0.5))
     _close(tcam.invert_intrinsics(Kt), jcam.invert_intrinsics(K))
     _close(tcam.invert_intrinsics(Kt) @ Kt, np.broadcast_to(np.eye(3, dtype=np.float32), K.shape))
-    _close(timage.image_grid(H, W), jimage.image_grid(H, W))
-    _close(timage.image_grid(H, W, normalized=True), jimage.image_grid(H, W, normalized=True))
+    _close(timage.image_grid(H, W, device="cpu"), jimage.image_grid(H, W))
+    _close(timage.image_grid(H, W, normalized=True, device="cpu"),
+           jimage.image_grid(H, W, normalized=True))
 
 
 def test_reconstruct_and_project_match_jax():
