@@ -28,10 +28,23 @@ Phases, each of which fails the run:
    the plain version on the first step's real depths and poses; model_loss
    on the card against the CPU at 64x96; then 5 train steps with the launch
    counters read around them.
+5. Eval and infer on the flagship model (configs/eval_kitti.yaml's: the
+   KITTI config's PackNet01-1A at full width, the Garg crop; random weights
+   from seed 0): the flip-fused eval step at 192x640 against ground truth at
+   eigen_test's 375x1242 with 4% of its pixels valid, as velodyne gives,
+   timed over 10 steps at B = 1 and B = 4, its metric half alone; the step
+   on the card against the CPU at 64x96 (gt 75x124); the eval protocol end
+   to end (save_checkpoint, then cli.eval.evaluate on a 13-sample Synthetic
+   test split in batches of 4, the last one padded) against an every-sample
+   oracle; infer's depth-only forward against the eval step's straight
+   half. No kernel of the port is on this path: the launch counters must
+   read 0 around it.
 
 Float32 throughout, TF32 off (the configs' bfloat16 policy is not ported
 yet). Needs a CUDA device; exits non-zero, printing no result, without one.
-The last line is {"ok": true, "device": {...}}; the line before it lists
+The last line is {"ok": true, "device": {...}}; before the kernels' line,
+one line {"eval": {...}} holds phase 5's numbers. The line before the last
+lists
 each kernel with its launches on its train path's steps, error against the
 plain version, time, plain time, bound and, where one PyTorch call computes
 the same function, that call's time. A bound is the largest of the bytes'
@@ -40,11 +53,13 @@ measured here.
 """
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
 import time
 
+ROOT = pathlib.Path(__file__).resolve().parent
 PATCH = 20
 STEPS = 5
 PROGRESS = 0.5
@@ -88,6 +103,21 @@ TOL_WARP_GRAD = 1e-4
 # and weights ~20, then 8 (forward) or 16 (backward) per channel.
 WARP_OPS = {"fwd": (20, 8), "bwd": (24, 16)}
 KITTI_SCALES = 4
+# Phase 5: eigen_test's native ground-truth resolution, the share of its
+# pixels that velodyne depth covers, and the eval protocol's split.
+EVAL_GT = (375, 1242)
+EVAL_GT_DENSITY = 0.04
+EVAL_STEPS = 10
+PROTOCOL_SAMPLES, PROTOCOL_BATCH = 13, 4
+# Card against CPU: continuous metrics relative; a1-a3 within 2 / n_valid
+# (a pixel whose ratio sits on a threshold may flip). The protocol against
+# its every-sample oracle: absolute, as tests/test_eval_protocol.py. Infer
+# against the eval step's straight half: relative to the largest inverse
+# depth (B = 1 against B = 2 of the same image; cuDNN may pick another
+# algorithm for another batch).
+TOL_EVAL_CPU = 1e-3
+TOL_PROTOCOL = 2e-4
+TOL_INFER = 1e-5
 
 
 def log(msg):
@@ -688,6 +718,219 @@ def flagship_phase(device, cfg):
     return counts
 
 
+def eval_config(kitti):
+    """configs/eval_kitti.yaml's run on the card: the KITTI config's model in
+    float32 (that file's dtype), its test split replaced by Synthetic
+    samples at the eval shape (13 in batches of 4) whose depths are written
+    as npz only, and no validation split."""
+    cfg = kitti.clone()
+    cfg.arch.dtype = "float32"
+    cfg.datasets.validation.dataset = []
+    h, w = cfg.datasets.augmentation.image_shape
+    test = cfg.datasets.test
+    test.dataset, test.path, test.split, test.depth_type = ["Synthetic"], [""], [""], [""]
+    test.batch_size = PROTOCOL_BATCH
+    test.synthetic_length, test.synthetic_height, test.synthetic_width = PROTOCOL_SAMPLES, h, w
+    out = ROOT / "build" / "chip_smoke_eval"
+    cfg.save.folder = str(out / "save")
+    cfg.save.depth = {"rgb": False, "viz": False, "npz": True, "png": False}
+    return cfg, out
+
+
+def eval_batches(cfg, b, gt_hw, seed=0):
+    """Host batch of ``b`` Synthetic images at the config's shape, with ground
+    truth of another size at velodyne's density."""
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
+
+    h, w = cfg.datasets.augmentation.image_shape
+    rgb = SyntheticSfmDataset(length=b, height=h, width=w, seed=seed, back_context=0,
+                              forward_context=0)
+    gt = SyntheticSfmDataset(length=b, height=gt_hw[0], width=gt_hw[1], seed=seed + 1,
+                             depth_density=EVAL_GT_DENSITY, back_context=0, forward_context=0)
+    return {"rgb": np.stack([rgb[i]["rgb"] for i in range(b)]),
+            "depth": np.stack([gt[i]["depth"] for i in range(b)])}
+
+
+def time_eval_steps(step, batch):
+    """Median wall ms of the eval steps after the first (each ends in a
+    synchronize), images/s and the peak memory; checks the rows."""
+    import numpy as np
+    import torch
+
+    b = batch["rgb"].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(EVAL_STEPS + 1):
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    med = statistics.median(ms[1:])
+    for mode in ("depth", "depth_pp", "depth_gt", "depth_pp_gt"):
+        rows = out[mode].cpu().numpy()
+        if rows.shape != (b, 7) or not np.all(np.isfinite(rows)):
+            raise AssertionError(f"eval rows of {mode}: {rows}")
+    log(f"eval step B={b}, rgb {tuple(batch['rgb'].shape[1:3])}, gt "
+        f"{tuple(batch['depth'].shape[1:3])}: " + ", ".join(f"{x:.2f}" for x in ms)
+        + f" ms; median of steps 2-{len(ms)}: {med:.2f} ms, {b / med * 1e3:.2f} images/s, "
+        f"peak memory allocated {peak:.1f} MiB")
+    return dict(step_ms=med, images_per_s=b / med * 1e3, peak_mib=peak)
+
+
+def eval_cpu_reference(model, cfg, metrics_cfg, device):
+    """The eval step on the card and on the CPU with the same weights, at
+    64x96 against ground truth at 75x124 (B = 2)."""
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.engine.factory import setup_model
+    from packnet_sfm_tpu_torch.engine.metrics import garg_crop_mask
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, make_eval_step
+
+    small = cfg.clone()
+    small.datasets.augmentation.image_shape = (64, 96)
+    batch = eval_batches(small, 2, (75, 124), seed=7)
+    cpu_model = setup_model(cfg.model, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    card = make_eval_step(model, metrics_cfg)(batch)
+    cpu = make_eval_step(cpu_model, metrics_cfg)(batch)
+    valid = ((batch["depth"][..., 0] > 0) & (batch["depth"][..., 0] < metrics_cfg.max_depth)
+             & (garg_crop_mask(75, 124).numpy() > 0))
+    n_valid = int(valid.reshape(2, -1).sum(axis=1).min())
+    worst_rel, worst_a = 0.0, 0.0
+    for mode in EVAL_MODES:
+        got, want = card[mode].cpu().numpy(), cpu[mode].numpy()
+        worst_rel = max(worst_rel, float((np.abs(got[:, :4] - want[:, :4])
+                                          / np.maximum(np.abs(want[:, :4]), 1e-6)).max()))
+        worst_a = max(worst_a, float(np.abs(got[:, 4:] - want[:, 4:]).max()))
+    log(f"eval step 64x96, gt 75x124, B=2: card vs cpu, continuous metrics {worst_rel:.3e} "
+        f"relative (tolerance {TOL_EVAL_CPU:g}), a1-a3 {worst_a:.3e} (tolerance 2/n_valid = "
+        f"{2 / n_valid:.3e})")
+    if not (worst_rel <= TOL_EVAL_CPU and worst_a <= 2.0 / n_valid):
+        raise AssertionError("the eval step on the card disagrees with the CPU")
+    return worst_rel, worst_a
+
+
+def eval_protocol(model, cfg, step, out_dir):
+    """save_checkpoint, then cli.eval.evaluate on the saved directory, against
+    the mean of the eval step over every test sample at B = 1."""
+    import shutil
+
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.cli.eval import evaluate
+    from packnet_sfm_tpu_torch.datasets.loader import setup_dataset
+    from packnet_sfm_tpu_torch.engine.checkpoint import save_checkpoint
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = save_checkpoint(str(out_dir / "ckpt"), model, cfg.to_dict(), epoch=0)
+    t0 = time.perf_counter()
+    table = evaluate(path)[0]
+    secs = time.perf_counter() - t0
+    ds = setup_dataset(cfg.datasets.test, "test", cfg.datasets.augmentation, cfg.arch.seed)[0]
+    rows = {m: np.zeros((len(ds), 7)) for m in EVAL_MODES}
+    for i in range(len(ds)):
+        s = ds[i]
+        out = step({"rgb": s["rgb"][None], "depth": s["depth"][None]})
+        for m in EVAL_MODES:
+            rows[m][i] = out[m].cpu().numpy()[0]
+    diff = max(float(np.abs(table[m] - rows[m].mean(axis=0)).max()) for m in EVAL_MODES)
+    saved = sorted(p.name for p in (out_dir / "save").iterdir())
+    log(f"eval protocol: cli.eval.evaluate over {len(ds)} samples in batches of "
+        f"{cfg.datasets.test.batch_size} (the last padded) took {secs:.1f} s, model build and "
+        f"restore included; its table against the every-sample oracle: max |diff| {diff:.3e} "
+        f"(tolerance {TOL_PROTOCOL:g}); {len(saved)} depth files written")
+    if not diff <= TOL_PROTOCOL:
+        raise AssertionError("the eval protocol disagrees with its every-sample oracle")
+    if saved != [f"synthetic_{i:010d}.npz" for i in range(len(ds))]:
+        raise AssertionError(f"unexpected depth outputs: {saved}")
+    return diff, {m: [float(x) for x in table[m]] for m in EVAL_MODES}
+
+
+def eval_phase(device, kitti):
+    """Phase 5 (see the module docstring); returns its numbers."""
+    import torch
+
+    from packnet_sfm_tpu_torch.cli.infer import make_depth_fn
+    from packnet_sfm_tpu_torch.engine.factory import setup_metrics_config, setup_model
+    from packnet_sfm_tpu_torch.engine.train import (
+        eval_forward, eval_metrics, make_eval_step, to_device_float)
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+    from packnet_sfm_tpu_torch.ops import warp
+
+    cfg, out_dir = eval_config(kitti)
+    h, w = cfg.datasets.augmentation.image_shape
+    log(f"eval config: {cfg.model.name}, {cfg.model.depth_net.name}-"
+        f"{cfg.model.depth_net.version}, rgb {h}x{w}, gt {EVAL_GT[0]}x{EVAL_GT[1]} at density "
+        f"{EVAL_GT_DENSITY}, crop {cfg.model.params.crop!r}, scale_output "
+        f"{cfg.model.params.scale_output!r}, float32")
+    sa.reset_launch_counts()
+    warp.reset_launch_counts()
+    model = setup_model(cfg.model, device=device, seed=0)
+    metrics_cfg = setup_metrics_config(cfg)
+    step = make_eval_step(model, metrics_cfg)
+    result = {"config": f"{cfg.model.depth_net.name}-{cfg.model.depth_net.version}, rgb {h}x{w}, "
+                        f"gt {EVAL_GT[0]}x{EVAL_GT[1]} at density {EVAL_GT_DENSITY}"}
+    for b in (1, 4):
+        result[f"B{b}"] = time_eval_steps(step, eval_batches(cfg, b, EVAL_GT))
+
+    batch = eval_batches(cfg, 1, EVAL_GT)
+    rgb = to_device_float(batch["rgb"], device)
+    gt = to_device_float(batch["depth"], device)
+    inv2 = eval_forward(model, rgb)
+
+    def metrics():
+        return eval_metrics(inv2, gt, metrics_cfg)
+
+    # one call a round: its host enqueue (a few ms, some hundred small ops)
+    # stays under the blocking product, so the events see the device time
+    result["metrics_ms"] = time_ms(metrics, reps=1, rounds=10, warmup=2)
+    wall = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    result["metrics_wall_ms"] = statistics.median(wall)
+    log(f"eval metrics alone (resize to {EVAL_GT[0]}x{EVAL_GT[1]}, flip fusion, 4 modes with "
+        f"their sorts), B=1: {result['metrics_ms']:.4f} ms of device time, "
+        f"{result['metrics_wall_ms']:.3f} ms on the host's clock (enqueue included)")
+    _blocker.clear()
+    torch.cuda.empty_cache()
+
+    result["cpu_rel_err"], result["cpu_a_err"] = eval_cpu_reference(model, cfg, metrics_cfg,
+                                                                     device)
+    result["protocol_max_abs_diff"], result["table"] = eval_protocol(model, cfg, step, out_dir)
+
+    depth_fn = make_depth_fn(model)
+    ms = []
+    for _ in range(EVAL_STEPS + 1):
+        t0 = time.perf_counter()
+        inv = depth_fn(rgb)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    straight = eval_forward(model, rgb)[:1]
+    rel = ((inv - straight).abs().max() / straight.abs().max()).item()
+    med = statistics.median(ms[1:])
+    result.update(infer_ms=med, infer_images_per_s=1e3 / med, infer_rel_err=rel)
+    log(f"infer depth-only forward [1,{h},{w},3]: median of calls 2-{len(ms)} {med:.2f} ms, "
+        f"{1e3 / med:.2f} images/s; against the eval step's straight half {rel:.3e} of the "
+        f"largest inverse depth (tolerance {TOL_INFER:g})")
+    if not (rel <= TOL_INFER and torch.isfinite(inv).all()):
+        raise AssertionError("infer's depth disagrees with the eval step's straight half")
+
+    result["launches"] = {**sa.launch_counts, **warp.launch_counts}
+    log(f"launches during eval and infer: {result['launches']}")
+    if any(result["launches"].values()):
+        raise AssertionError("the eval path launched a kernel of the port")
+    return result
+
+
 def main():
     import torch
 
@@ -739,6 +982,8 @@ def main():
     measured["softargmax_fwd"]["by_case"].append(real["fwd"])
     measured["softargmax_bwd"]["by_case"].append(real["bwd"])
     kitti_counts = flagship_phase(device, kitti)
+    torch.cuda.empty_cache()
+    evaluated = eval_phase(device, kitti)
 
     # each kernel's launches are those of the train path it belongs to: the
     # NRS steps for the soft-argmax (they also launch the warp kernels, twice
@@ -760,6 +1005,7 @@ def main():
             if extra in m:
                 entry[extra] = m[extra]
         kernels.append(entry)
+    print(json.dumps({"eval": evaluated}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

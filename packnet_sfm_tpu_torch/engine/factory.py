@@ -11,6 +11,7 @@ import torch
 
 from packnet_sfm_tpu_torch.core.config import ConfigNode
 from packnet_sfm_tpu_torch.device import resolve_device
+from packnet_sfm_tpu_torch.engine.metrics import DepthMetricsConfig
 from packnet_sfm_tpu_torch.losses.generic_photometric import GenericPhotometricConfig
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricConfig
 from packnet_sfm_tpu_torch.models.sfm import PORTED_KINDS, SfmModelDef
@@ -73,6 +74,12 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
                         flip_lr_prob=loss.flip_lr_prob,
                         upsample_depth_maps=loss.upsample_depth_maps)
     return model.to(device)
+
+
+def setup_metrics_config(cfg: ConfigNode) -> DepthMetricsConfig:
+    p = cfg.model.params
+    return DepthMetricsConfig(crop=p.crop, min_depth=p.min_depth, max_depth=p.max_depth,
+                              scale_output=p.scale_output)
 
 
 def make_optimizer(model: SfmModelDef, optimizer_cfg: ConfigNode,

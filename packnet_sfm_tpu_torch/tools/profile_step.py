@@ -1,7 +1,7 @@
-"""Where the time of a train step goes on the card.
+"""Where the time of a train or eval step goes on the card.
 
     python -m packnet_sfm_tpu_torch.tools.profile_step [--config kitti|omnicam]
-        [--steps 5] [--out FILE]
+        [--eval] [--steps 5] [--out FILE]
 
 Builds one of the two ported training configurations as chip_smoke.py does
 (float32, TF32 off, synthetic samples, random weights from seed 0):
@@ -9,13 +9,19 @@ Builds one of the two ported training configurations as chip_smoke.py does
   192x640, batch 4, device jitter and the training flip on;
 - ``omnicam``: configs/train_omnicam.yaml, GenericSelfSupModel,
   RaySurfaceResNet-18 + PoseNet, 384x384, batch 1, progress 0.5.
-Takes 3 warm-up steps, then profiles ``--steps`` train steps with
+With ``--eval`` (kitti only) it profiles the flip-fused eval step instead:
+B = 1, rgb 192x640, ground truth at eigen_test's 375x1242 with 4% of its
+pixels valid, the Garg crop, as chip_smoke.py's phase 5; its forward is the
+range depth_net and its metric half the range depth_metrics (the resize to
+the ground truth, the flip fusion and the 4 modes with their sorts).
+Takes 3 warm-up steps, then profiles ``--steps`` steps with
 torch.profiler: the wall time per step, the device time per kernel and per
 group of kernels, and the device's busy share (summed kernel time over wall
 time; one stream, so kernels do not overlap). Convolution kernels are split
 into 2D and 3D by the rank of the launching operator's input; the forward
 kernels are also summed by the model's profiler ranges (depth_net, pose_net,
-photometric_loss: the warp, SSIM and reduction chain of the loss). The
+photometric_loss: the warp, SSIM and reduction chain of the loss;
+depth_metrics in eval). The
 profiler slows the host, so the wall time and busy share here are those of a
 profiled step; chip_smoke.py times the step without it. Needs a CUDA device.
 """
@@ -36,6 +42,8 @@ import torch
 # both through kernels of the same names.
 GROUPS = (
     ("softargmax", "softargmax kernels (K6f/K6b)"),
+    ("Sort", "sorts (the metrics' medians)"),
+    ("sort", "sorts (the metrics' medians)"),
     ("warp_fwd_kernel", "warp kernels (warp_fwd/warp_bwd)"),
     ("warp_bwd_kernel", "warp kernels (warp_fwd/warp_bwd)"),
     ("conv", "conv2d (cuDNN)"),
@@ -47,6 +55,8 @@ GROUPS = (
     ("batch_norm", "batch/group norm"),
     ("group_norm", "batch/group norm"),
     ("GroupNorm", "batch/group norm"),
+    ("RowwiseMoments", "batch/group norm"),          # GroupNorm's statistics
+    ("ComputeFusedParams", "batch/group norm"),
     ("avg_pool", "SSIM pooling and padding"),
     ("reflection_pad", "SSIM pooling and padding"),
     ("reduce", "reductions"),
@@ -65,7 +75,8 @@ GROUPS = (
 CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward",
             "aten::cudnn_convolution_transpose", "aten::_convolution",
             "aten::convolution", "aten::conv2d", "aten::conv3d")
-REGIONS = ("depth_net", "pose_net", "photometric_loss")
+REGIONS = ("depth_net", "pose_net", "photometric_loss", "depth_metrics")
+EVAL_GT, EVAL_GT_DENSITY = (375, 1242), 0.04
 
 
 def group_of(name: str) -> str:
@@ -92,15 +103,39 @@ def _region_of(evt):
     return None
 
 
+def build_eval(device):
+    """run(i) of the eval step of the KITTI config's model (float32) at B = 1
+    against ground truth at 375x1242."""
+    from packnet_sfm_tpu_torch.core.config import KITTI, config_from_dict, parse_train_config
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
+    from packnet_sfm_tpu_torch.engine.factory import setup_metrics_config, setup_model
+    from packnet_sfm_tpu_torch.engine.train import make_eval_step
+
+    cfg = parse_train_config(config_from_dict(KITTI))
+    h, w = cfg.datasets.augmentation.image_shape
+    rgb = SyntheticSfmDataset(length=1, height=h, width=w, seed=0, back_context=0,
+                              forward_context=0)[0]["rgb"]
+    gt = SyntheticSfmDataset(length=1, height=EVAL_GT[0], width=EVAL_GT[1], seed=1,
+                             depth_density=EVAL_GT_DENSITY, back_context=0,
+                             forward_context=0)[0]["depth"]
+    batch = {"rgb": rgb[None], "depth": gt[None]}
+    step = make_eval_step(setup_model(cfg.model, device=device, seed=0),
+                          setup_metrics_config(cfg))
+
+    def run(i):
+        step(batch)
+    return run
+
+
 def build(config: str, n: int, device):
-    """(step, batches, progress) of one ported training configuration."""
+    """run(i) of train step i of one ported training configuration."""
     from packnet_sfm_tpu_torch.core.config import (
         KITTI, OMNICAM, config_from_dict, parse_train_config)
     from packnet_sfm_tpu_torch.datasets.augmentations import draw_jitter_params
     from packnet_sfm_tpu_torch.datasets.synthetic import (
         SyntheticSfmDataset, collate_train_batch)
     from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
-    from packnet_sfm_tpu_torch.engine.train import make_train_step
+    from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
 
     cfg = parse_train_config(config_from_dict(KITTI if config == "kitti" else OMNICAM))
     h, w = cfg.datasets.augmentation.image_shape
@@ -122,33 +157,38 @@ def build(config: str, n: int, device):
     optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, n)
     step = make_train_step(model, optimizer, scheduler,
                            generator=torch.Generator().manual_seed(0))
-    return step, batches, (0.0 if config == "kitti" else 0.5)
+    progress = 0.0 if config == "kitti" else 0.5
+    acc = zero_metrics(device)
+
+    def run(i):
+        step(acc, batches[i], progress=progress)
+    return run
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("kitti", "omnicam"), default="omnicam")
+    ap.add_argument("--eval", action="store_true", help="profile the eval step (kitti)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="", help="write the JSON summary here too")
     args = ap.parse_args()
-
-    from packnet_sfm_tpu_torch.engine.train import zero_metrics
+    if args.eval and args.config != "kitti":
+        ap.error("--eval profiles the kitti config's eval step")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    step, batches, progress = build(args.config, args.steps + 3, device)
-    acc = zero_metrics(device)
-    for b in batches[:3]:
-        acc = step(acc, b, progress=progress)
+    run = build_eval(device) if args.eval else build(args.config, args.steps + 3, device)
+    for i in range(3):
+        run(i)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     wall = []
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
-        for b in batches[3:]:
+        for i in range(3, 3 + args.steps):
             t0 = time.perf_counter()
-            acc = step(acc, b, progress=progress)
+            run(i)
             torch.cuda.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
 
@@ -190,7 +230,7 @@ def main():
 
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:30]
     summary = {
-        "config": args.config,
+        "config": args.config + (" eval" if args.eval else ""),
         "device": torch.cuda.get_device_name(0),
         "steps": steps,
         "wall_ms_per_step": wall,
@@ -204,7 +244,7 @@ def main():
         "kernel_launches_per_step": len(kernels) / steps,
         "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
     }
-    print(f"{args.config}: wall ms/step {summary['wall_ms_median']:.2f} (median of {steps}), "
+    print(f"{summary['config']}: wall ms/step {summary['wall_ms_median']:.2f} (median of {steps}), "
           f"device ms/step {device_ms:.2f}, busy share {summary['busy_share']:.3f}, "
           f"device kernels/step {summary['kernel_launches_per_step']:.0f}, "
           f"{attributed:.2f} ms/step linked to operators")

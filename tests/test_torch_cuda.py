@@ -29,6 +29,12 @@ every side, exact integer positions and the corners -1/+1. Tolerances:
 values 1e-5 (images in [0, 1); only fused multiply-adds round differently);
 gradients 1e-4 of their largest magnitude (d coords sums the channels in
 another order; d image is summed with atomics).
+
+The eval step (PackNetSlim01-1A, random weights) on the card against the
+CPU, same weights and batch, at 64x96 with the ground truth at 75x124 and
+at 32x64 with it at the input's size: continuous metrics rtol 1e-3, a1-a3
+within 2 / n_valid, as chip_smoke.py holds the full-width PackNet01; the
+eval path launches none of the port's kernels.
 """
 
 import pytest
@@ -212,3 +218,41 @@ def test_forward_statistics_feed_the_backward(device):
         assert (m.double() / temperature - m_ref).abs().max().item() <= 4e-7 / temperature
         assert ((s.double() - s_ref).abs() / s_ref).max().item() <= (1e-4 if temperature > 1e-3 else 5e-2)
         assert (s >= 1.0).all()
+
+
+@pytest.mark.parametrize("b,hw,gt_hw", [(1, (64, 96), (75, 124)), (2, (32, 64), (32, 64))])
+def test_eval_step_on_the_card_matches_the_cpu(device, b, hw, gt_hw):
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.core.config import KITTI, config_from_dict
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
+    from packnet_sfm_tpu_torch.engine.factory import setup_metrics_config, setup_model
+    from packnet_sfm_tpu_torch.engine.metrics import garg_crop_mask
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, make_eval_step
+
+    cfg = config_from_dict(KITTI)
+    cfg.model.depth_net.name = "PackNetSlim01"
+    rgb_ds = SyntheticSfmDataset(length=b, height=hw[0], width=hw[1], seed=1)
+    gt_ds = SyntheticSfmDataset(length=b, height=gt_hw[0], width=gt_hw[1], seed=2,
+                                back_context=0, forward_context=0)
+    batch = {"rgb": np.stack([rgb_ds[i]["rgb"] for i in range(b)]),
+             "depth": np.stack([gt_ds[i]["depth"] for i in range(b)])}
+    model = setup_model(cfg.model, device=device)
+    cpu_model = setup_model(cfg.model, device="cpu", seed=1)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    metrics_cfg = setup_metrics_config(cfg)
+    sa.reset_launch_counts()
+    warp.reset_launch_counts()
+    card = make_eval_step(model, metrics_cfg)(batch)
+    torch.cuda.synchronize()
+    assert sa.launch_counts == {"softargmax_fwd": 0, "softargmax_bwd": 0}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0}
+    cpu = make_eval_step(cpu_model, metrics_cfg)(batch)
+    valid = ((batch["depth"][..., 0] > 0) & (batch["depth"][..., 0] < 80)
+             & (garg_crop_mask(*gt_hw).numpy() > 0))     # the KITTI config's crop
+    n_valid = int(valid.reshape(b, -1).sum(axis=1).min())
+    for mode in EVAL_MODES:
+        got, want = card[mode].cpu().numpy(), cpu[mode].numpy()
+        assert got.shape == (b, 7) and np.all(np.isfinite(got))
+        np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=1e-3, atol=1e-6)
+        np.testing.assert_allclose(got[:, 4:], want[:, 4:], rtol=0, atol=2.0 / n_valid)
