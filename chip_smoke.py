@@ -39,11 +39,28 @@ Phases, each of which fails the run:
    oracle; infer's depth-only forward against the eval step's straight
    half. No kernel of the port is on this path: the launch counters must
    read 0 around it.
+6. Training loop, from OVERFIT_PACKNET_SYNTHETIC (configs/
+   overfit_packnet_synthetic.yaml: SelfSupModel, PackNetSlim01-1A + PoseNet
+   at the config's width, lr 5e-5, batch 8, 64x96 Synthetic with device
+   jitter and the training flip). Cut so that the phase fits: 2 epochs in
+   place of 8 and repeat [2] in place of [24] (8 steps an epoch), every
+   checkpoint kept, under build/chip_smoke_train/. ``cli.train``'s
+   build_trainer and fit train it: finite losses and a metric table each
+   epoch, checkpoints named epoch=NN_depth_gt_abs_rel=V.ckpt, the warp
+   launch counters read around the run (4 of each a step); its first two
+   steps against the same two steps on the CPU from the same weights
+   (losses, and the direction of the weights' update); ``cli.train.train``
+   on the epoch-0 checkpoint against the uninterrupted run's epoch 1 (its
+   loss, its weights held to epoch 1's own movement, step, learning rates,
+   flip generator); a preemption flagged after step 1 writes
+   preempt_epoch=00.ckpt, whose resume redoes epoch 0; then the train
+   loader alone over an epoch, and the bare step on its batches.
 
 Float32 throughout, TF32 off (the configs' bfloat16 policy is not ported
 yet). Needs a CUDA device; exits non-zero, printing no result, without one.
 The last line is {"ok": true, "device": {...}}; before the kernels' line,
-one line {"eval": {...}} holds phase 5's numbers. The line before the last
+one line {"eval": {...}} holds phase 5's numbers and one line
+{"train": {...}} phase 6's. The line before the last
 lists
 each kernel with its launches on its train path's steps, error against the
 plain version, time, plain time, bound and, where one PyTorch call computes
@@ -118,6 +135,21 @@ PROTOCOL_SAMPLES, PROTOCOL_BATCH = 13, 4
 TOL_EVAL_CPU = 1e-3
 TOL_PROTOCOL = 2e-4
 TOL_INFER = 1e-5
+# Phase 6: the recipe's cut, and its tolerances. The card's first two train
+# steps against the CPU's: losses within TOL_LOSS_CPU, relative, and the
+# cosine of the two weight updates at least TOL_UPDATE_COS, as
+# tests/test_torch_cuda.py holds them. The resumed run's epoch 1 against the
+# uninterrupted one's: the loss within TOL_RESUME_LOSS, relative, and the
+# weights' difference, as a norm, within TOL_RESUME of how far epoch 1 moved
+# them. They may part at all only because cuDNN sums weight gradients in an
+# order that may change between runs; Adam moves a weight by about the rate
+# (5e-5) a step whatever the gradient's size, so a resume that lost Adam's
+# moments or the step would part by a large share of the movement.
+TRAIN_EPOCHS, TRAIN_REPEAT, TRAIN_SCALES = 2, 2, 4
+TOL_UPDATE_COS = 0.99
+TOL_RESUME_LOSS = 1e-4
+TOL_RESUME = 0.05
+BARE_STEPS = 6
 
 
 def log(msg):
@@ -931,6 +963,236 @@ def eval_phase(device, kitti):
     return result
 
 
+def train_config(filepath, max_epochs=TRAIN_EPOCHS):
+    """Phase 6's recipe: OVERFIT_PACKNET_SYNTHETIC, cut as the module
+    docstring says, its checkpoints under ``filepath``."""
+    import copy
+
+    from packnet_sfm_tpu_torch.core.config import OVERFIT_PACKNET_SYNTHETIC
+
+    cfg = copy.deepcopy(OVERFIT_PACKNET_SYNTHETIC)
+    cfg["arch"]["max_epochs"] = max_epochs
+    cfg["datasets"]["train"]["repeat"] = [TRAIN_REPEAT]
+    cfg["checkpoint"].update(filepath=str(filepath), save_top_k=-1)
+    return cfg
+
+
+def parameters(model):
+    """The model's trained tensors (no running statistics), on the CPU."""
+    return {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+
+
+def update_cosine(start, a, b):
+    """Cosine of the updates a - start and b - start over all tensors."""
+    import torch
+
+    da = torch.cat([(a[k] - start[k]).double().flatten() for k in start])
+    db = torch.cat([(b[k] - start[k]).double().flatten() for k in start])
+    return float(da @ db / (da.norm() * db.norm()))
+
+
+def watch_steps(trainer, keep=2, preempt_after=None):
+    """Wrap the trainer's step functions: keep the first ``keep`` host
+    batches, their losses and the weights after them, and flag a preemption
+    once ``preempt_after`` steps have run."""
+    seen = {"batches": [], "losses": [], "steps": 0, "after": None}
+    build = trainer._train_step_for
+
+    def wrapped(num_scales):
+        step = build(num_scales)
+
+        def watched(acc, batch, progress):
+            keep_this = len(seen["batches"]) < keep
+            before = acc["loss"][0].item() if keep_this else 0.0
+            acc = step(acc, batch, progress)
+            if keep_this:
+                seen["batches"].append(batch)
+                seen["losses"].append(acc["loss"][0].item() - before)
+                if len(seen["batches"]) == keep:
+                    seen["after"] = parameters(trainer.model)
+            seen["steps"] += 1
+            if preempt_after is not None and seen["steps"] >= preempt_after:
+                trainer._preempt_requested = True
+            return acc
+        return watched
+    trainer._train_step_for = wrapped
+    return seen
+
+
+def train_cpu_reference(cfg, start, batches):
+    """The first train steps on the CPU from the same weights (``start``, the
+    card's state dict), batches and flip generator; returns their losses and
+    the weights after them."""
+    from packnet_sfm_tpu_torch.cli.train import build_trainer
+    from packnet_sfm_tpu_torch.engine.train import zero_metrics
+
+    cpu = build_trainer(dict(cfg, checkpoint={}), device="cpu")
+    cpu.model.load_state_dict(start)
+    cpu._setup_training()
+    step = cpu._train_step_for(TRAIN_SCALES)
+    acc, losses, prev = zero_metrics("cpu"), [], 0.0
+    for b in batches:
+        acc = step(acc, b, 0.0)
+        losses.append(acc["loss"][0].item() - prev)
+        prev = acc["loss"][0].item()
+    return losses, parameters(cpu.model)
+
+
+def train_phase(device):
+    """Phase 6 (see the module docstring); returns its numbers."""
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.cli.train import build_trainer, train
+    from packnet_sfm_tpu_torch.engine.checkpoint import read_state
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, zero_metrics
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+    from packnet_sfm_tpu_torch.ops import warp
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = train_config(root / "run")
+    trainer = build_trainer(cfg, device=device)
+    seen = watch_steps(trainer)
+    fit_epoch, walls = trainer._fit_epoch, []
+
+    def timed_epoch(epoch):
+        t0 = time.perf_counter()
+        out = fit_epoch(epoch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    trainer._fit_epoch = timed_epoch
+    start = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    net = trainer.config.model.depth_net
+    log(f"train config: {trainer.config.model.name}, {net.name}-{net.version} + "
+        f"{trainer.config.model.pose_net.name}, lr {trainer.config.model.optimizer.depth.lr:g}, "
+        f"64x96, batch {trainer.config.datasets.train.batch_size}, jitter "
+        f"{tuple(trainer.config.datasets.augmentation.jittering)}, flip_lr_prob "
+        f"{trainer.config.model.loss.flip_lr_prob}; cut to {TRAIN_EPOCHS} epochs, repeat "
+        f"[{TRAIN_REPEAT}]")
+
+    torch.cuda.synchronize()
+    sa.reset_launch_counts()
+    warp.reset_launch_counts()
+    history = trainer.fit()
+    torch.cuda.synchronize()
+    counts = {**sa.launch_counts, **warp.launch_counts}
+    steps = trainer.step
+    want = {"softargmax_fwd": 0, "softargmax_bwd": 0,
+            "warp_fwd": TRAIN_SCALES * steps, "warp_bwd": TRAIN_SCALES * steps}
+    log(f"fit: {len(history)} epochs of {trainer.steps_per_epoch} steps; launches {counts}")
+    if steps != TRAIN_EPOCHS * trainer.steps_per_epoch or counts != want:
+        raise AssertionError(f"{steps} steps, launch counts {counts}, expected {want}")
+    for h in history:
+        table = np.array([h["val"][0][m] for m in EVAL_MODES])
+        if not (np.isfinite(h["loss"]) and np.all(np.isfinite(table))):
+            raise AssertionError(f"epoch {h['epoch']}: loss {h['loss']}, table {table}")
+    names = sorted(p.name for p in (root / "run").iterdir())
+    if not (len(names) == TRAIN_EPOCHS and all(
+            re.fullmatch(rf"epoch={e:02d}_depth_gt_abs_rel=[0-9]+\.[0-9]{{3}}\.ckpt", n)
+            for e, n in enumerate(names))):
+        raise AssertionError(f"unexpected checkpoints: {names}")
+
+    cpu_losses, cpu_after = train_cpu_reference(cfg, start, seen["batches"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(seen["losses"], cpu_losses)]
+    start = {k: start[k] for k in cpu_after}
+    cos = update_cosine(start, seen["after"], cpu_after)
+    log("first steps' losses: card " + ", ".join(f"{x:.7f}" for x in seen["losses"])
+        + "; cpu " + ", ".join(f"{x:.7f}" for x in cpu_losses)
+        + f"; rel {', '.join(f'{x:.2e}' for x in rel)} (tolerance {TOL_LOSS_CPU:g}); "
+        f"the two steps' weight update: cosine {cos:.6f} (tolerance {TOL_UPDATE_COS:g})")
+    if not (len(rel) == 2 and max(rel) <= TOL_LOSS_CPU and cos >= TOL_UPDATE_COS):
+        raise AssertionError("the card's train steps disagree with the CPU's")
+
+    # resume the epoch-0 checkpoint: its epoch 1 against the uninterrupted one
+    full = dict(model=parameters(trainer.model), step=trainer.step,
+                lrs=[g["lr"] for g in trainer.optimizer.param_groups],
+                generator=trainer.generator.get_state().clone())
+    epoch0 = read_state(str(root / "run" / names[0]))["model"]
+    resumed = train(str(root / "run" / names[0]), device=device)
+    got = parameters(resumed.model)
+
+    def norm(diffs):
+        return float(torch.sqrt(sum((d.double() ** 2).sum() for d in diffs)))
+    moved = norm(full["model"][k] - epoch0[k] for k in full["model"])
+    parted = norm(got[k] - full["model"][k] for k in full["model"])
+    resume_err = max((got[k] - v).abs().max().item() for k, v in full["model"].items())
+    loss_rel = abs(resumed.history[0]["loss"] - history[1]["loss"]) / abs(history[1]["loss"])
+    same = (resumed.step == full["step"] and [h["epoch"] for h in resumed.history] == [1]
+            and [g["lr"] for g in resumed.optimizer.param_groups] == full["lrs"]
+            and torch.equal(resumed.generator.get_state(), full["generator"]))
+    log(f"resume of {names[0]}: step {resumed.step}, learning rates, flip generator "
+        f"{'equal' if same else 'DIFFERENT'}; epoch-1 weights |resumed - uninterrupted| "
+        f"{parted:.4e} against epoch 1's movement {moved:.4e}: {parted / moved:.3e} "
+        f"(tolerance {TOL_RESUME:g}), max |diff| {resume_err:.3e}; epoch-1 loss "
+        f"{resumed.history[0]['loss']:.7f} against {history[1]['loss']:.7f}, rel "
+        f"{loss_rel:.2e} (tolerance {TOL_RESUME_LOSS:g})")
+    if not (same and parted <= TOL_RESUME * moved and loss_rel <= TOL_RESUME_LOSS):
+        raise AssertionError("the resumed run parts from the uninterrupted one")
+    del resumed
+
+    # a preemption after step 1, and its resume
+    preempted = build_trainer(train_config(root / "preempt", max_epochs=1), device=device)
+    watch_steps(preempted, keep=0, preempt_after=1)
+    preempted.fit()
+    ckpt = root / "preempt" / "preempt_epoch=00.ckpt"
+    meta = json.loads((ckpt / "meta.json").read_text())
+    again = train(str(ckpt), device=device)
+    log(f"preemption after step 1: {ckpt.name} at epoch {meta['epoch']}, step {meta['step']}, "
+        f"{sorted(read_state(str(ckpt)))}; its resume ran epochs "
+        f"{[h['epoch'] for h in again.history]} to step {again.step}")
+    if not (meta["epoch"] == -1 and meta["step"] == 1 and preempted.history == []
+            and [h["epoch"] for h in again.history] == [0]
+            and again.step == 1 + again.steps_per_epoch):
+        raise AssertionError("the preemption checkpoint does not redo epoch 0")
+    del preempted, again
+
+    # the train loader alone over an epoch, with its threads; then the bare
+    # step, as phase 4 times it, on its batches
+    loader = trainer.train_loaders[0]
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader.epoch(0))
+    loader_s = time.perf_counter() - t0
+    step = trainer._train_step_for(TRAIN_SCALES)
+    batches = [b for _, b in zip(range(BARE_STEPS), loader.epoch(0))]
+    acc, step_ms = zero_metrics(device), []
+    for b in batches:
+        t0 = time.perf_counter()
+        acc = step(acc, b, 0.0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    bare = statistics.median(step_ms[1:])
+    batch = cfg["datasets"]["train"]["batch_size"]
+    epochs = [dict(epoch=h["epoch"], wall_seconds=w,
+                   images_per_s=batch * trainer.steps_per_epoch / w,
+                   imgs_per_sec=h["imgs_per_sec"], train_seconds=h["seconds"],
+                   val_seconds=h["val_seconds"], peak_mib=h["peak_mib"], loss=h["loss"],
+                   depth_gt_abs_rel=h["val"][0]["depth_gt"][0])
+              for h, w in zip(history, walls)]
+    for e in epochs:
+        log(f"epoch {e['epoch']}: {e['wall_seconds']:.2f} s wall ({e['images_per_s']:.1f} "
+            f"images/s), train {e['train_seconds']:.2f} s ({e['imgs_per_sec']:.1f} imgs/s), "
+            f"validation {e['val_seconds']:.2f} s, peak {e['peak_mib']:.1f} MiB, depth_gt "
+            f"abs_rel {e['depth_gt_abs_rel']:.4f}")
+    log(f"train loader alone: {n_batches} batches in {loader_s:.2f} s "
+        f"({loader.num_workers} threads)")
+    log(f"bare step (batch {batch}): " + ", ".join(f"{x:.2f}" for x in step_ms)
+        + f" ms; median of steps 2-{len(step_ms)} {bare:.2f} ms, {batch / bare * 1e3:.1f} "
+        f"images/s; phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(config=f"{net.name}-{net.version} + PoseNet, 64x96, batch {batch}, "
+                       f"{TRAIN_EPOCHS} epochs of {trainer.steps_per_epoch} steps",
+                epochs=epochs, bare_step_ms=bare, bare_images_per_s=batch / bare * 1e3,
+                loader_epoch_seconds=loader_s, cpu_loss_rel=rel, cpu_update_cosine=cos,
+                resume_share_of_movement=parted / moved, resume_max_abs_err=resume_err,
+                resume_loss_rel=loss_rel, launches=counts,
+                seconds=time.perf_counter() - t_phase)
+
+
 def main():
     import torch
 
@@ -984,6 +1246,8 @@ def main():
     kitti_counts = flagship_phase(device, kitti)
     torch.cuda.empty_cache()
     evaluated = eval_phase(device, kitti)
+    torch.cuda.empty_cache()
+    trained = train_phase(device)
 
     # each kernel's launches are those of the train path it belongs to: the
     # NRS steps for the soft-argmax (they also launch the warp kernels, twice
@@ -1006,6 +1270,7 @@ def main():
                 entry[extra] = m[extra]
         kernels.append(entry)
     print(json.dumps({"eval": evaluated}))
+    print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -314,3 +314,47 @@ KITTI = {
         },
     },
 }
+
+
+def _synthetic_split(batch_size: int, length: int, **extra) -> dict:
+    return {"batch_size": batch_size, "dataset": ["Synthetic"], "path": [""], "split": [""],
+            "depth_type": [""], "synthetic_length": length, **extra}
+
+
+# configs/overfit_synthetic.yaml as ``yaml.safe_load`` returns it: the
+# overfit-to-a-bar recipe (SelfSupModel, DepthResNet-18 + PoseNet, 64x96
+# Synthetic, batch 8, 32 samples repeated 24 times, 8 epochs).
+# tests/test_torch_port_rules.py holds the two equal.
+OVERFIT_SYNTHETIC = {
+    "arch": {"max_epochs": 8},
+    "checkpoint": {"monitor": "depth_gt_abs_rel", "mode": "min"},
+    "model": {
+        "name": "SelfSupModel",
+        "depth_net": {"name": "DepthResNet", "version": "18"},
+        "pose_net": {"name": "PoseNet"},
+    },
+    "datasets": {
+        "train": _synthetic_split(8, 32, repeat=[24]),
+        "validation": _synthetic_split(8, 16),
+        "test": _synthetic_split(8, 16),
+    },
+}
+
+
+# configs/overfit_packnet_synthetic.yaml as ``yaml.safe_load`` returns it:
+# the same recipe with PackNetSlim01-1A at lr 5e-5.
+OVERFIT_PACKNET_SYNTHETIC = {
+    "arch": {"max_epochs": 8},
+    "checkpoint": {"monitor": "depth_gt_abs_rel", "mode": "min"},
+    "model": {
+        "name": "SelfSupModel",
+        "optimizer": {"depth": {"lr": 5e-05}, "pose": {"lr": 5e-05}},
+        "depth_net": {"name": "PackNetSlim01", "version": "1A"},
+        "pose_net": {"name": "PoseNet"},
+    },
+    "datasets": {
+        "train": _synthetic_split(8, 32, repeat=[24]),
+        "validation": _synthetic_split(8, 16),
+        "test": _synthetic_split(8, 16),
+    },
+}

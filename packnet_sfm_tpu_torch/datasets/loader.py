@@ -9,9 +9,16 @@ worker threads prefetch decode and transform, and shuffling is seeded by
 wrapping and 'pad_count' marks the pad rows. Batches are stacked numpy; the
 eval step moves them to the device.
 
+The train split's transform is the loader's: it is called with the
+sample's position in the (repeated) split and the epoch, and draws its
+generator from (seed, epoch, position), so every epoch and every repeat
+copy of a sample sees fresh jitter factors, each a pure function of those
+three. (The JAX package seeds it
+from (seed, sample index) alone, so that its every epoch and repeat copy of
+a sample draws the same factors.)
+
 Ported datasets: Synthetic. KITTI, Image and DGP wait for their data
-(ROADMAP.md §1 item 11); the train transform waits for the trainer slice
-(ROADMAP.md §1 item 2).
+(ROADMAP.md §1 item 11).
 """
 
 from __future__ import annotations
@@ -45,13 +52,20 @@ def collate(samples: Sequence[dict]) -> dict:
     return batch
 
 
+def _as_loaded(sample, idx, epoch):
+    return sample
+
+
 class DataLoader:
-    """Deterministic, host-sharded, thread-prefetching loader."""
+    """Deterministic, host-sharded, thread-prefetching loader. Each sample
+    is ``transform(dataset[idx], idx, epoch)``; the default returns it as
+    the dataset gives it."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 42,
                  drop_last: bool = True, num_workers: int = 8, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, transform=_as_loaded):
         self.dataset = dataset
+        self.transform = transform
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -115,6 +129,9 @@ class DataLoader:
         plan = self._batch_plan(epoch)
         nb = len(plan)
 
+        def fetch(idx: int) -> dict:
+            return self.transform(self.dataset[idx], idx, epoch)
+
         def assemble(samples, pad: int) -> dict:
             batch = collate(samples)
             if pad:
@@ -123,7 +140,7 @@ class DataLoader:
 
         if self.num_workers <= 1:
             for idxs, pad in plan:
-                yield assemble([self.dataset[int(i)] for i in idxs], pad)
+                yield assemble([fetch(int(i)) for i in idxs], pad)
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             # enough batches in flight to keep every worker busy
@@ -131,7 +148,7 @@ class DataLoader:
 
             def submit(bi: int):
                 idxs, pad = plan[bi]
-                return [pool.submit(self.dataset.__getitem__, int(i))
+                return [pool.submit(fetch, int(i))
                         for i in idxs], pad
             inflight = {bi: submit(bi) for bi in range(depth)}
             next_submit = depth
@@ -145,13 +162,24 @@ class DataLoader:
 
 
 def make_transform(mode: str, aug_cfg, seed: int = 42):
-    """The per-sample transform of a validation or test split."""
-    from packnet_sfm_tpu_torch.datasets.augmentations import eval_transform
+    """The per-sample transform of a split. The train transform is the
+    train loader's, ``tf(sample, idx=0, epoch=0)``: its generator is drawn
+    from (seed, epoch, idx), idx the sample's position in the (repeated)
+    split. The eval transforms are the datasets' own."""
+    from packnet_sfm_tpu_torch.datasets.augmentations import eval_transform, train_transform
 
-    if mode == "train":
-        raise NotImplementedError(
-            "the train transform is not ported yet; see ROADMAP.md §1 item 2")
     image_shape = tuple(aug_cfg.get("image_shape", ()) or ())
+    if mode == "train":
+        jitter = tuple(aug_cfg.get("jittering", ()) or ())
+        crop = tuple(aug_cfg.get("crop_train_borders", ()) or ())
+        device_jitter = bool(aug_cfg.get("device_jitter", True))
+        resize_filter = str(aug_cfg.get("resize_filter", "area"))
+
+        def train_tf(sample, idx=0, epoch=0):
+            rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, idx]))
+            return train_transform(sample, image_shape, jitter, crop, rng,
+                                   device_jitter=device_jitter, resize_filter=resize_filter)
+        return train_tf
     crop = tuple(aug_cfg.get("crop_eval_borders", ()) or ())
 
     def tf(sample, idx=0):
@@ -187,14 +215,28 @@ class ConcatDataset:
         return self.datasets[di][idx - int(self._offsets[di])]
 
 
-def setup_dataset(cfg, mode: str, aug_cfg, seed: int = 42):
-    """Instantiate the datasets named in a validation or test split config,
-    one per entry (the train transform raises, see ``make_transform``)."""
+def setup_dataset(cfg, mode: str, aug_cfg, seed: int = 42, requirements=None):
+    """Instantiate the datasets named in a split config, one per entry. A
+    train split's dataset repeats ``repeat[i]`` times an epoch and carries
+    no transform (its loader applies the train transform); ``requirements``
+    are the model's train-data needs ('gt_depth', 'input_depth'), which
+    Synthetic always meets."""
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
 
-    tfm = make_transform(mode, aug_cfg, seed)
+    requirements = requirements or {}
+    train = mode == "train"
     datasets = []
     for i, name in enumerate(cfg.dataset):
+        if train and name != "Synthetic":
+            if requirements.get("gt_depth") and not cfg.depth_type[i]:
+                raise ValueError(
+                    f"Model requires gt depth but train dataset {i} ({name}) "
+                    "has no depth_type configured")
+            if requirements.get("input_depth") and not (
+                    i < len(cfg.input_depth_type) and cfg.input_depth_type[i]):
+                raise ValueError(
+                    f"Model requires input (lidar) depth but train dataset "
+                    f"{i} ({name}) has no input_depth_type configured")
         if name in ("KITTI", "Image", "DGP"):
             raise NotImplementedError(
                 f"dataset {name!r} is not ported yet; see ROADMAP.md §1 item 11")
@@ -205,18 +247,24 @@ def setup_dataset(cfg, mode: str, aug_cfg, seed: int = 42):
             length=cfg.get("synthetic_length", 64),
             height=cfg.get("synthetic_height", 64),
             width=cfg.get("synthetic_width", 96),
-            train=False,
-            data_transform=tfm,
+            train=train,
+            data_transform=None if train else make_transform(mode, aug_cfg, seed),
             back_context=cfg.back_context,
             forward_context=cfg.forward_context)
+        if train:
+            repeat = cfg.get("repeat", [1])
+            if i < len(repeat) and repeat[i] > 1:
+                ds = RepeatDataset(ds, repeat[i])
         datasets.append(ds)
     return datasets
 
 
-def setup_dataloader(datasets, cfg, mode: str, seed: int = 42):
+def setup_dataloader(datasets, cfg, mode: str, seed: int = 42, aug_cfg=None):
     """DataLoaders for each dataset of a split. Train drops the last partial
-    batch; validation and test see every sample (the last batch is padded
-    by wrapping and the pad rows are masked downstream)."""
+    batch and applies the train transform of ``aug_cfg``; validation and
+    test see every sample (the last batch is padded by wrapping and the pad
+    rows are masked downstream)."""
+    transform = make_transform("train", aug_cfg, seed) if mode == "train" else _as_loaded
     return [
         DataLoader(
             d,
@@ -225,6 +273,7 @@ def setup_dataloader(datasets, cfg, mode: str, seed: int = 42):
             seed=seed,
             drop_last=(mode == "train"),
             num_workers=cfg.get("num_workers", 8),
+            transform=transform,
         )
         for d in datasets
     ]

@@ -1,11 +1,14 @@
 """Config -> model/optimizer factories (port of ``engine/factory.py``).
 
-Ported: the PackNet01, PackNetSlim01 and RaySurfaceResNet depth networks,
-PoseNet, and the SelfSupModel and GenericSelfSupModel kinds; other networks
-and kinds raise ``NotImplementedError`` until their slice lands (ROADMAP.md).
+Ported: the PackNet01, PackNetSlim01, DepthResNet and RaySurfaceResNet
+depth networks, PoseNet, the SelfSupModel and GenericSelfSupModel kinds, and
+the StepLR and CosineAnnealingLR schedules; other networks and kinds raise
+``NotImplementedError`` until their slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,6 +18,7 @@ from packnet_sfm_tpu_torch.engine.metrics import DepthMetricsConfig
 from packnet_sfm_tpu_torch.losses.generic_photometric import GenericPhotometricConfig
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricConfig
 from packnet_sfm_tpu_torch.models.sfm import PORTED_KINDS, SfmModelDef
+from packnet_sfm_tpu_torch.nn.depth_resnet import DepthResNet
 from packnet_sfm_tpu_torch.nn.packnet import PackNet01, PackNetSlim01
 from packnet_sfm_tpu_torch.nn.posenet import PoseNet
 from packnet_sfm_tpu_torch.nn.raysurface import RaySurfaceResNet
@@ -26,8 +30,10 @@ def setup_depth_net(cfg: ConfigNode):
         net = PackNet01 if cfg.name == "PackNet01" else PackNetSlim01
         return net(version=version[1:] or "A", dropout=cfg.get("dropout", 0.0) or None,
                    remat=bool(cfg.get("remat", False)))
+    if cfg.name == "DepthResNet":
+        return DepthResNet(version=version.replace("pt", "") or "18")
     if cfg.name == "RaySurfaceResNet":
-        return RaySurfaceResNet(version=cfg.get("version", "").replace("pt", "") or "18")
+        return RaySurfaceResNet(version=version.replace("pt", "") or "18")
     raise NotImplementedError(f"depth net {cfg.name!r} is not ported yet; see ROADMAP.md")
 
 
@@ -84,16 +90,35 @@ def setup_metrics_config(cfg: ConfigNode) -> DepthMetricsConfig:
 
 def make_optimizer(model: SfmModelDef, optimizer_cfg: ConfigNode,
                    scheduler_cfg: ConfigNode, steps_per_epoch: int):
-    """Adam with separate depth and pose parameter groups, and the StepLR
-    epoch decay as a per-step schedule: lr = base * gamma^(epoch //
-    step_size), epoch = step // steps_per_epoch. Call ``scheduler.step()``
-    after every optimizer step. Returns (optimizer, scheduler).
+    """Adam with separate depth and pose parameter groups, and the epoch
+    schedule as a per-step factor of the base rate, as the JAX package's
+    optax schedules see the update count k:
+
+    - StepLR: gamma^((k // steps_per_epoch) // step_size);
+    - CosineAnnealingLR: optax's ``cosine_decay_schedule`` over T_max
+      epochs, 0.5 (1 + cos(pi min(k, n) / n)) with n = T_max *
+      steps_per_epoch, held at 0 after n steps (``torch.optim.lr_scheduler.
+      CosineAnnealingLR`` would climb back up).
+
+    Call ``scheduler.step()`` after every optimizer step, so that step k
+    runs at factor(k). Returns (optimizer, scheduler).
     """
     if optimizer_cfg.get("name", "Adam").lower() != "adam":
         raise ValueError(f"Unknown optimizer {optimizer_cfg.get('name')}")
     name = scheduler_cfg.get("name", "StepLR")
-    if name != "StepLR":
-        raise NotImplementedError(f"scheduler {name!r} is not ported yet; see ROADMAP.md")
+    spe = max(steps_per_epoch, 1)
+    if name == "StepLR":
+        def factor(step: int) -> float:
+            return scheduler_cfg.gamma ** ((step // spe) // scheduler_cfg.step_size)
+    elif name == "CosineAnnealingLR":
+        decay_steps = scheduler_cfg.T_max * spe
+        if not decay_steps > 0:
+            raise ValueError(f"CosineAnnealingLR needs T_max > 0, got {scheduler_cfg.T_max}")
+
+        def factor(step: int) -> float:
+            return 0.5 * (1.0 + math.cos(math.pi * min(step, decay_steps) / decay_steps))
+    else:
+        raise ValueError(f"Unknown scheduler {name}")
     groups = [{"params": list(model.depth_net.parameters()),
                "lr": optimizer_cfg.depth.lr,
                "weight_decay": optimizer_cfg.depth.get("weight_decay", 0.0)}]
@@ -102,9 +127,4 @@ def make_optimizer(model: SfmModelDef, optimizer_cfg: ConfigNode,
                        "lr": optimizer_cfg.pose.lr,
                        "weight_decay": optimizer_cfg.pose.get("weight_decay", 0.0)})
     optimizer = torch.optim.Adam(groups)
-    spe = max(steps_per_epoch, 1)
-
-    def factor(step: int) -> float:
-        return scheduler_cfg.gamma ** ((step // spe) // scheduler_cfg.step_size)
-
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)

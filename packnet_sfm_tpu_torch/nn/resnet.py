@@ -113,6 +113,17 @@ class ResNetEncoder(nn.Module):
         return feats
 
 
+def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
+    """Pad H and W of an NCHW tensor by 1 with reflection, as
+    ``jnp.pad(mode="reflect")`` does: an axis of one pixel repeats it
+    (``F.pad``'s reflection refuses an axis no longer than the pad)."""
+    h, w = x.shape[-2:]
+    if h > 1 and w > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if w > 1 else "replicate")
+    return F.pad(x, (0, 0, 1, 1), mode="reflect" if h > 1 else "replicate")
+
+
 class ConvBlockRefl(nn.Module):
     """3x3 reflect-pad conv + ELU."""
 
@@ -121,7 +132,7 @@ class ConvBlockRefl(nn.Module):
         self.conv = nn.Conv2d(cin, features, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.elu(self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect")))
+        return F.elu(self.conv(reflect_pad1(x)))
 
 
 class Conv3x3Refl(nn.Module):
@@ -132,7 +143,7 @@ class Conv3x3Refl(nn.Module):
         self.conv = nn.Conv2d(cin, features, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+        return self.conv(reflect_pad1(x))
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,34 @@
+"""Console logging helpers: the port's own copy of ``pcolor`` and
+``print_config`` from ``packnet_sfm_tpu/utils/logging.py``."""
+
+from __future__ import annotations
+
+
+def pcolor(text: str, color: str = "cyan", attrs=None) -> str:
+    """ANSI-colored text."""
+    codes = {"red": 31, "green": 32, "yellow": 33, "blue": 34,
+             "magenta": 35, "cyan": 36, "white": 37}
+    attr_codes = {"bold": 1, "dark": 2, "underline": 4}
+    seq = [str(codes.get(color, 36))]
+    for a in (attrs or []):
+        seq.append(str(attr_codes.get(a, 0)))
+    return f"\033[{';'.join(seq)}m{text}\033[0m"
+
+
+def print_config(config, prefix: str = "config") -> None:
+    """Colored recursive config dump."""
+    from packnet_sfm_tpu_torch.core.config import ConfigNode
+
+    def walk(node, depth=0):
+        pad = "    " * depth
+        for k, v in node.items():
+            if isinstance(v, ConfigNode):
+                print(pcolor(f"{pad}{k}:", "yellow", ["bold"]))
+                walk(v, depth + 1)
+            else:
+                print(pcolor(f"{pad}{k}:", "cyan") + f" {v}")
+
+    print(pcolor("#" * 60, "red", ["bold"]))
+    print(pcolor(f"### {prefix}", "red", ["bold"]))
+    print(pcolor("#" * 60, "red", ["bold"]))
+    walk(config)

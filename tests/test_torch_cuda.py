@@ -35,6 +35,20 @@ CPU, same weights and batch, at 64x96 with the ground truth at 75x124 and
 at 32x64 with it at the input's size: continuous metrics rtol 1e-3, a1-a3
 within 2 / n_valid, as chip_smoke.py holds the full-width PackNet01; the
 eval path launches none of the port's kernels.
+
+Group norm at adversarial means (1e3-3e4, std 1 and 0.1) on the card, for a
+contiguous and a channels-last input, against a float64 two-pass oracle:
+within 4 float32 spacings of the mean over the std (the input's own
+quantization), as the CPU's kernel is on a contiguous input
+(tests/test_torch_networks.py); the CPU's channels-last kernel is not
+(ROADMAP.md §3 (c)).
+
+Two trainer steps (``Trainer.train_epoch`` over a 2-step epoch of the
+PackNetSlim overfit recipe at batch 2, device jitter and the training flip
+on) on the card against the CPU from the same seed: the epoch's mean loss
+within 1e-3 relative, as chip_smoke.py holds the card's first two steps, and
+the weights' update over the two steps at a cosine of 0.99 or more; the
+warp kernels launch 4 times a step each.
 """
 
 import pytest
@@ -256,3 +270,53 @@ def test_eval_step_on_the_card_matches_the_cpu(device, b, hw, gt_hw):
         assert got.shape == (b, 7) and np.all(np.isfinite(got))
         np.testing.assert_allclose(got[:, :4], want[:, :4], rtol=1e-3, atol=1e-6)
         np.testing.assert_allclose(got[:, 4:], want[:, 4:], rtol=0, atol=2.0 / n_valid)
+
+
+def test_trainer_steps_on_the_card_match_the_cpu(device):
+    import copy
+
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.cli.train import build_trainer
+    from packnet_sfm_tpu_torch.core.config import OVERFIT_PACKNET_SYNTHETIC
+
+    cfg = copy.deepcopy(OVERFIT_PACKNET_SYNTHETIC)
+    for mode in ("train", "validation", "test"):
+        cfg["datasets"][mode].update(batch_size=2, synthetic_length=4, num_workers=2)
+    cfg["datasets"]["train"]["repeat"] = [1]
+    card, cpu = build_trainer(cfg, device=device), build_trainer(cfg, device="cpu")
+    start = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
+    for k, v in cpu.model.state_dict().items():
+        assert torch.equal(v, start[k]), k
+    warp.reset_launch_counts()
+    got = card.train_epoch(0)
+    torch.cuda.synchronize()
+    assert card.step == 2 and got["peak_mib"] > 0
+    assert warp.launch_counts == {"warp_fwd": 8, "warp_bwd": 8}
+    want = cpu.train_epoch(0)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-3)
+    keys = sorted(start)
+    flat = lambda state: torch.cat([state[k].detach().cpu().double().ravel() for k in keys])
+    d_card = flat(card.model.state_dict()) - flat(start)
+    d_cpu = flat(cpu.model.state_dict()) - flat(start)
+    assert (d_card @ d_cpu / d_card.norm() / d_cpu.norm()).item() >= 0.99
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("mean,std", [(1e3, 1.0), (1e4, 1.0), (1e4, 0.1), (3e4, 0.1)])
+def test_group_norm_at_large_means_on_the_card(device, mean, std, layout):
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.nn.layers import FastGroupNorm
+
+    x = np.random.default_rng(0).normal(mean, std, size=(2, 8, 12, 64)).astype(np.float32)
+    xg = x.reshape(2, 8, 12, 16, 4).astype(np.float64)
+    centred = xg - xg.mean(axis=(1, 2, 4), keepdims=True)
+    want = (centred / np.sqrt((centred ** 2).mean(axis=(1, 2, 4), keepdims=True) + 1e-5)
+            ).reshape(x.shape)
+    nchw = torch.from_numpy(x).permute(0, 3, 1, 2)         # strided as a channels-last tensor
+    if layout == "contiguous":
+        nchw = nchw.contiguous()
+    with torch.no_grad():
+        got = FastGroupNorm(64).to(device)(nchw.to(device)).permute(0, 2, 3, 1).cpu().double()
+    assert np.abs(got.numpy() - want).max() <= 4 * mean * 2.0 ** -24 / std

@@ -6,15 +6,17 @@
   default and raise without it, unless the caller asks for the CPU; the
   kernel wrappers raise on a non-CUDA tensor;
 - its own copies of host modules agree with the JAX package's, exactly: the
-  OMNICAM and KITTI dicts with configs/train_omnicam.yaml and
-  configs/train_kitti.yaml, the synthetic dataset sample for sample, and the
-  eval slice's copies (eval transform, depth resizes, crop borders, collate,
-  the loader's batch plan and epochs, depth files, the colormap, image
-  decode);
+  OMNICAM, KITTI, OVERFIT_SYNTHETIC and OVERFIT_PACKNET_SYNTHETIC dicts with
+  their yaml files, the synthetic dataset sample for sample (its train
+  split too), the eval slice's copies (eval transform, depth resizes, crop
+  borders, collate, the loader's batch plan and epochs, depth files, the
+  colormap, image decode) and the training slice's (the encoder artifact's
+  layout and conv1 widening, the console helpers; the train transform in
+  tests/test_torch_augmentations.py);
 - what is not ported yet refuses with a pointer to ROADMAP.md (datasets
-  other than Synthetic, the train transform, training, bfloat16, W&B, the
-  init-time loads), and a missing Pillow or matplotlib raises ImportError
-  only where one is used;
+  other than Synthetic, ResNets other than 18, bfloat16, multi-process
+  training, the S3 sync), and a missing Pillow or matplotlib raises
+  ImportError only where one is used;
 - the package calls no library warp: no source of it mentions
   ``F.grid_sample``;
 - every ``extern "C"`` launcher of ``csrc/*.cu`` has its ctypes argument
@@ -94,10 +96,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, config):
 
 
 def test_unported_networks_and_kinds_are_refused():
-    cfg = config_from_dict(KITTI)
-    cfg.model.depth_net.name = "DepthResNet"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup_model(cfg.model, device="cpu")
+    for name, version in (("DepthResNet", "50"), ("DepthResNet", "34pt"), ("PackNetSAN01", "1A")):
+        cfg = config_from_dict(KITTI)
+        cfg.model.depth_net.name, cfg.model.depth_net.version = name, version
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            setup_model(cfg.model, device="cpu")
     cfg = config_from_dict(KITTI)
     cfg.model.name = "SemiSupModel"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -199,6 +202,21 @@ def test_kitti_matches_the_yaml():
     assert parse_train_config(built).prepared
 
 
+@pytest.mark.parametrize("name", ["OVERFIT_SYNTHETIC", "OVERFIT_PACKNET_SYNTHETIC"])
+def test_overfit_recipes_match_the_yaml(name):
+    from packnet_sfm_tpu_torch.core import config
+
+    yaml = pytest.importorskip("yaml")
+    path = ROOT / "configs" / f"{name.lower()}.yaml"
+    assert getattr(config, name) == yaml.safe_load(path.read_text())
+    loaded = load_config(str(path))
+    built = config_from_dict(getattr(config, name))
+    built.config = loaded.config
+    assert loaded == built
+    assert built.datasets.train.repeat == [24] and built.arch.max_epochs == 8
+    assert parse_train_config(built).prepared
+
+
 def test_omnicam_matches_the_yaml():
     yaml = pytest.importorskip("yaml")
     path = ROOT / "configs" / "train_omnicam.yaml"
@@ -214,15 +232,18 @@ def test_omnicam_matches_the_yaml():
 def test_synthetic_dataset_copy_matches_the_jax_package():
     from packnet_sfm_tpu.datasets.synthetic import SyntheticSfmDataset as JaxSynthetic
 
-    ours = SyntheticSfmDataset(length=2, height=32, width=48, seed=3)
-    theirs = JaxSynthetic(length=2, height=32, width=48, seed=3)
-    for i in range(2):
-        a, b = ours[i], theirs[i]
-        assert a.keys() == b.keys()
-        for key in ("rgb", "intrinsics", "depth"):
-            np.testing.assert_array_equal(a[key], b[key])
-        for x, y in zip(a["rgb_context"], b["rgb_context"]):
-            np.testing.assert_array_equal(x, y)
+    for train in (False, True):          # the eval splits' samples and the train split's
+        ours = SyntheticSfmDataset(length=2, height=32, width=48, seed=3, train=train)
+        theirs = JaxSynthetic(length=2, height=32, width=48, seed=3, train=train)
+        for i in range(2):
+            a, b = ours[i], theirs[i]
+            assert a.keys() == b.keys() and "pose_context" in a
+            for key in ("rgb", "intrinsics", "depth"):
+                np.testing.assert_array_equal(a[key], b[key])
+            assert a["idx"] == b["idx"] and a["filename"] == b["filename"]
+            for x, y in zip(a["rgb_context"] + a["pose_context"],
+                            b["rgb_context"] + b["pose_context"]):
+                np.testing.assert_array_equal(x, y)
 
 
 def test_collate_train_batch_stacks_samples():
@@ -425,43 +446,87 @@ def test_missing_pillow_or_matplotlib_raises_import_error(monkeypatch, tmp_path)
     write_depth(str(tmp_path / "d.npz"), np.ones((2, 3), np.float32))
 
 
-def test_unported_eval_pieces_refuse_naming_the_roadmap():
-    from packnet_sfm_tpu_torch.datasets.augmentations import resize_image
-    from packnet_sfm_tpu_torch.datasets.loader import make_transform, setup_dataset
+def test_unported_eval_pieces_refuse_naming_the_roadmap(tmp_path):
+    """What the eval and training slices leave out refuses, naming the
+    roadmap item (or, for the S3 sync, what it would need)."""
+    from packnet_sfm_tpu_torch.cli.train import train
+    from packnet_sfm_tpu_torch.datasets.loader import setup_dataset
+    from packnet_sfm_tpu_torch.engine.checkpoint import ModelCheckpoint
     from packnet_sfm_tpu_torch.engine.trainer import Trainer
 
     cfg = _eval_config()
-    for name in ("KITTI", "Image", "DGP"):
-        split = cfg.datasets.test.clone()
-        split.dataset = [name]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            setup_dataset(split, "test", cfg.datasets.augmentation)
+    for mode in ("test", "train"):
+        for name in ("KITTI", "Image", "DGP"):
+            split = cfg.datasets[mode].clone()
+            split.dataset = [name]
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                setup_dataset(split, mode, cfg.datasets.augmentation)
+    bad = cfg.clone()
+    bad.arch.dtype = "bfloat16"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_transform("train", cfg.datasets.augmentation)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resize_image(np.zeros((4, 6, 3), np.float32), (2, 3), filter="area")
+        Trainer(bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
+        train(cfg.to_dict(), distributed=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="S3"):
+        ModelCheckpoint(str(tmp_path), s3_path="s3://bucket/run")
+    # the training half is there: nothing of it refuses any more
+    d = cfg.datasets.train
+    d.dataset, d.path, d.split, d.depth_type = ["Synthetic"], [""], [""], [""]
+    d.synthetic_length, d.synthetic_height, d.synthetic_width = 2, 32, 48
+    d.batch_size, d.num_workers, d.repeat = 2, 1, [1]
     trainer = Trainer(cfg, device="cpu")
-    for call in (trainer.fit, lambda: trainer.train_epoch(0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     trainer.init_state()                     # nothing to load: the seed's weights stay
-    for key, value in (("checkpoint_path", "/x.ckpt"), ("version", "18pt")):
-        trainer.config.model.depth_net[key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.init_state()
-        trainer.config.model.depth_net[key] = ""
-    for key, value in (("arch", {"dtype": "bfloat16"}), ("wandb", {"dry_run": False})):
-        bad = cfg.clone()
-        bad[key].update(value)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(bad, device="cpu")
+    assert trainer.train_epoch(0)["imgs_per_sec"] > 0 and trainer.step == 1
+    # W&B without the package: a line, and no logger
+    wandb = cfg.clone()
+    wandb.wandb.dry_run = False
+    assert Trainer(wandb, device="cpu").logger.dry_run
+
+
+def test_console_helpers_copy_matches_the_jax_package(capsys):
+    from packnet_sfm_tpu.utils import logging as jlog
+    from packnet_sfm_tpu_torch.utils import logging as tlog
+
+    for args in (("x",), ("y", "red", ["bold", "underline"]), ("z", "nope", ["dark"])):
+        assert tlog.pcolor(*args) == jlog.pcolor(*args)
+    from packnet_sfm_tpu.core.config import ConfigNode as JaxNode
+
+    cfg = _eval_config()
+    tlog.print_config(cfg, prefix="run")
+    ours = capsys.readouterr().out
+    jlog.print_config(JaxNode.from_dict(cfg.to_dict()), prefix="run")
+    assert ours == capsys.readouterr().out and "run" in ours
+
+
+def test_encoder_artifact_copy_matches_the_jax_package(tmp_path):
+    from packnet_sfm_tpu.utils import torch_import as jti
+    from packnet_sfm_tpu_torch.utils import torch_import as tti
+
+    rng = np.random.default_rng(6)
+    kernel = rng.normal(size=(7, 7, 3, 64)).astype(np.float32)
+    for n in (1, 2, 3):
+        np.testing.assert_array_equal(tti.adapt_conv1_multiimage(kernel, n),
+                                      jti.adapt_conv1_multiimage(kernel, n))
+    params = {"conv1": {"kernel": kernel}, "layer1_0": {"conv1": {"kernel": kernel[..., :8]}}}
+    stats = {"bn1": {"mean": rng.normal(size=64), "var": rng.uniform(size=64)}}
+    path = str(tmp_path / "enc.npz")
+    jti.save_encoder_artifact(path, params, stats)
+    ours, theirs = tti.load_encoder_artifact(path), jti.load_encoder_artifact(path)
+    for a, b in zip(ours, theirs):
+        fa, fb = tti._flatten_tree(a), jti._flatten_tree(b)
+        assert fa.keys() == fb.keys() and len(fa) > 0
+        for k in fa:
+            np.testing.assert_array_equal(fa[k], fb[k])
+    assert tti._unflatten_tree(tti._flatten_tree(params)).keys() == params.keys()
 
 
 def test_trainer_and_clis_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     import json
 
     from packnet_sfm_tpu_torch.cli import eval as eval_cli
+    from packnet_sfm_tpu_torch.cli import evaluate_depth_maps as edm_cli
     from packnet_sfm_tpu_torch.cli import infer as infer_cli
+    from packnet_sfm_tpu_torch.cli import train as train_cli
     from packnet_sfm_tpu_torch.engine.trainer import Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -480,6 +545,13 @@ def test_trainer_and_clis_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         eval_cli.evaluate(path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         infer_cli.infer_and_save(path, str(tmp_path / "in.png"), str(tmp_path / "out.npz"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.train(path)
+    # the depth-map CLI asks for the device before it reads a file
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        edm_cli.evaluate_folders(str(tmp_path / "none"), str(tmp_path / "none"))
     assert eval_cli.parse_args(["--checkpoint", path]).device == "cuda"
     assert infer_cli.parse_args(["--checkpoint", path, "--input", "a",
                                  "--output", "b"]).device == "cuda"
+    assert train_cli.parse_args([path]).device == "cuda"
+    assert edm_cli.parse_args(["--pred_folder", "a", "--gt_folder", "b"]).device == "cuda"
