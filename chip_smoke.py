@@ -13,21 +13,30 @@ Phases, each of which fails the run:
    (csrc/warp.cu) against theirs on coordinates that leave the image on
    every side, exact integer coordinates and -1/+1, both padding modes,
    B = 1, 3 and 8, C = 3, 1 and 4, with d image on, and their times at the four
-   shapes of the flagship loss beside F.grid_sample's.
+   shapes of the flagship loss beside F.grid_sample's; the bfloat16-image
+   variants warp_fwd_bf16/warp_bwd_bf16 on the same cases against the plain
+   version on the widened image, and their times at the four shapes beside
+   the float32 kernel, the cast + float32 kernel that the wrapper ran before
+   them, and image.float() + F.grid_sample.
 3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
-   random weights from seed 0) on synthetic samples: generic_project through
-   the kernels against the plain version on the first step's real tensors,
-   and K6f/K6b timed on those; model_loss on the card against the CPU
-   (plain version) at 96x96; then 5
-   train steps at progress 0.5 with the launch counters read around them.
+   random weights from seed 0) on synthetic samples, as the config says:
+   arch.dtype bfloat16, so PoseNet computes in bfloat16 and the ResNet in
+   float32 on bfloat16 images, K6 in float32, the warp through the
+   bfloat16-image variants. generic_project through the kernels against the
+   plain version on the first step's real tensors, and K6f/K6b timed on
+   those; model_loss on the card against the CPU (plain version) at 96x96;
+   then 5 train steps at progress 0.5 with the launch counters read around
+   them; then the same in float32, 3 steps.
 4. Flagship slice: the train step of configs/train_kitti.yaml (SelfSupModel,
    PackNet01-1A + PoseNet, 192x640, batch 4, 4 scales, automask, device
    jitter, the training flip; random weights from seed 0) on synthetic
-   samples with intrinsics: view_synthesis through the warp kernels against
-   the plain version on the first step's real depths and poses; model_loss
-   on the card against the CPU at 64x96; then 5 train steps with the launch
-   counters read around them.
+   samples with intrinsics, as the config says: bfloat16 networks and
+   images, float32 intrinsics, depths and coordinates. view_synthesis
+   through the warp kernels against the plain version on the first step's
+   real depths and poses; model_loss on the card against the CPU at 64x96;
+   then 5 train steps with the launch counters read around them (the
+   bfloat16-image warp 4 times a step); then all of it again in float32.
 5. Eval and infer on the flagship model (configs/eval_kitti.yaml's: the
    KITTI config's PackNet01-1A at full width, the Garg crop; random weights
    from seed 0): the flip-fused eval step at 192x640 against ground truth at
@@ -37,8 +46,12 @@ Phases, each of which fails the run:
    to end (save_checkpoint, then cli.eval.evaluate on a 13-sample Synthetic
    test split in batches of 4, the last one padded) against an every-sample
    oracle; infer's depth-only forward against the eval step's straight
-   half. No kernel of the port is on this path: the launch counters must
-   read 0 around it.
+   half. That is float32, eval_kitti.yaml's dtype; then --half: the same
+   weights in a bfloat16 model, its eval step timed at B = 1 and 4,
+   cli.eval.evaluate(half=True) on the saved checkpoint against the float32
+   table (abs_rel of each mode), and infer --half's forward against the
+   bfloat16 eval step's straight half. No kernel of the port is on this
+   path: the launch counters must read 0 around it.
 6. Training loop, from OVERFIT_PACKNET_SYNTHETIC (configs/
    overfit_packnet_synthetic.yaml: SelfSupModel, PackNetSlim01-1A + PoseNet
    at the config's width, lr 5e-5, batch 8, 64x96 Synthetic with device
@@ -56,17 +69,19 @@ Phases, each of which fails the run:
    preempt_epoch=00.ckpt, whose resume redoes epoch 0; then the train
    loader alone over an epoch, and the bare step on its batches.
 
-Float32 throughout, TF32 off (the configs' bfloat16 policy is not ported
-yet). Needs a CUDA device; exits non-zero, printing no result, without one.
+Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
+it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
+float32 work; bfloat16 convolutions use the tensor cores regardless. Needs
+a CUDA device; exits non-zero, printing no result, without one.
 The last line is {"ok": true, "device": {...}}; before the kernels' line,
-one line {"eval": {...}} holds phase 5's numbers and one line
-{"train": {...}} phase 6's. The line before the last
-lists
-each kernel with its launches on its train path's steps, error against the
-plain version, time, plain time, bound and, where one PyTorch call computes
-the same function, that call's time. A bound is the largest of the bytes'
-time, the operations' time and the time of an empty kernel's launch,
-measured here.
+one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
+{"eval": {...}} phase 5's numbers and one line {"train": {...}} phase 6's.
+The line before the last lists each kernel with its dtype, its launches on
+its train path's steps (the bfloat16 steps; the float32-image warp's on the
+float32 flagship steps), error against the plain version, time, plain
+time, bound and, where one PyTorch call computes the same function, that
+call's time. A bound is the largest of the bytes' time, the operations'
+time and the time of an empty kernel's launch, measured here.
 """
 
 import json
@@ -135,6 +150,20 @@ PROTOCOL_SAMPLES, PROTOCOL_BATCH = 13, 4
 TOL_EVAL_CPU = 1e-3
 TOL_PROTOCOL = 2e-4
 TOL_INFER = 1e-5
+# bfloat16 (the configs' arch.dtype). The card against the CPU: both round
+# activations to bfloat16 at every layer, in orders cuDNN and oneDNN pick,
+# so the losses part by more than float32's (TOL_LOSS_CPU); measured on an
+# H100 2.3e-4 (NRS, whose soft-argmax at T ~ 1e-4 amplifies it) and 1.6e-5
+# (flagship). Eval --half against float32 on the same random weights:
+# abs_rel in each mode, relative (measured 1.7e-3 at most). Infer --half
+# against its eval step's straight half (B = 1 against B = 2 of the same
+# image: bfloat16 convolutions of another batch may take another
+# algorithm, which rounds otherwise), relative to the largest inverse depth
+# (measured 6.4e-3).
+TOL_LOSS_CPU_BF16 = 2e-3
+TOL_HALF_ABS_REL = 1e-2
+TOL_INFER_HALF = 2e-2
+NRS_F32_STEPS = 3
 # Phase 6: the recipe's cut, and its tolerances. The card's first two train
 # steps against the CPU's: losses within TOL_LOSS_CPU, relative, and the
 # cosine of the two weight updates at least TOL_UPDATE_COS, as
@@ -403,44 +432,62 @@ def real_tensor_projection(model, batch, device, temperature):
     return worst, operands[0]
 
 
-def cpu_reference(model, cfg, device):
+def prepared(batch, device, dtype):
+    """The train step's device half of a host batch: decode, jitter and, in
+    bfloat16, the cast of the images."""
+    from packnet_sfm_tpu_torch.engine.train import cast_batch, prepare_train_batch
+
+    b = prepare_train_batch(batch, device)
+    return b if dtype is None else cast_batch(b, dtype)
+
+
+def cpu_reference(model, cfg, device, dtype):
     """model_loss at 96x96 on the card (kernels) and on the CPU (plain
-    version) with the same weights."""
+    version) with the same weights, in the model's compute dtype."""
     import torch
 
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
     from packnet_sfm_tpu_torch.engine.factory import setup_model
-    from packnet_sfm_tpu_torch.engine.train import prepare_train_batch
     from packnet_sfm_tpu_torch.models.sfm import model_loss
 
     s = SyntheticSfmDataset(length=1, height=96, width=96, seed=7)[0]
     batch = {"rgb": s["rgb"][None], "rgb_context": [c[None] for c in s["rgb_context"]]}
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    cpu_model = setup_model(cfg.model, device="cpu")
+    cpu_model = setup_model(cfg.model, device="cpu", dtype=dtype)
     cpu_model.load_state_dict({k: v.cpu() for k, v in state.items()})
     with torch.no_grad():
-        gpu_loss = model_loss(model, prepare_train_batch(batch, device), PROGRESS)[0].item()
-        cpu_loss = model_loss(cpu_model, prepare_train_batch(batch, "cpu"), PROGRESS)[0].item()
+        gpu_loss = model_loss(model, prepared(batch, device, dtype), PROGRESS)[0].item()
+        cpu_loss = model_loss(cpu_model, prepared(batch, "cpu", dtype), PROGRESS)[0].item()
     model.load_state_dict(state)
     rel = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
-    log(f"model_loss 96x96: card {gpu_loss:.7f} cpu {cpu_loss:.7f} rel {rel:.2e} "
-        f"(tolerance {TOL_LOSS_CPU:g})")
-    if not rel <= TOL_LOSS_CPU:
+    tol = TOL_LOSS_CPU if dtype is None else TOL_LOSS_CPU_BF16
+    log(f"model_loss 96x96, {dtype_name(dtype)}: card {gpu_loss:.7f} cpu {cpu_loss:.7f} "
+        f"rel {rel:.2e} (tolerance {tol:g})")
+    if not rel <= tol:
         raise AssertionError("model_loss on the card disagrees with the CPU")
+    return rel
+
+
+def dtype_name(dtype):
+    return "float32" if dtype is None else str(dtype).removeprefix("torch.")
 
 
 def slice_phase(device, cfg):
+    """Phase 3: the NRS step as its config says (bfloat16), then in float32
+    beside it. Returns ({dtype: the steps' numbers}, K6's real-field rows)."""
     import torch
 
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
-    from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
+    from packnet_sfm_tpu_torch.engine.factory import compute_dtype, make_optimizer, setup_model
     from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
     from packnet_sfm_tpu_torch.geometry.camera_generic import projection_temperature
 
     H, W = cfg.datasets.augmentation.image_shape
+    dtype = compute_dtype(cfg)
     log(f"config: {cfg.model.name}, {cfg.model.depth_net.name}-{cfg.model.depth_net.version} "
-        f"+ {cfg.model.pose_net.name}, {H}x{W}, batch {cfg.datasets.train.batch_size}; "
-        f"arch.dtype {cfg.arch.dtype} is not ported yet: this run trains float32")
+        f"+ {cfg.model.pose_net.name}, {H}x{W}, batch {cfg.datasets.train.batch_size}, "
+        f"arch.dtype {cfg.arch.dtype}: PoseNet computes in {dtype_name(dtype)}, the ResNet in "
+        f"float32 on {dtype_name(dtype)} images; then {NRS_F32_STEPS} float32 steps")
     temperature = projection_temperature(PROGRESS)
     ds = SyntheticSfmDataset(length=STEPS, height=H, width=W, seed=0)
     batches = []
@@ -448,31 +495,43 @@ def slice_phase(device, cfg):
         s = ds[i]
         batches.append({"rgb": s["rgb"][None], "rgb_context": [c[None] for c in s["rgb_context"]]})
 
-    model = setup_model(cfg.model, device=device, seed=0)
-    optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler,
-                                          steps_per_epoch=len(ds))
-    step = make_train_step(model, optimizer, scheduler)
-    proj_err, (direction, rays) = real_tensor_projection(model, batches[0], device, temperature)
-    real = time_softargmax(direction, rays, temperature,
-                           f"the first step's direction and ray fields, T={temperature:.3e}")
-    del direction, rays
-    _blocker.clear()                # the timing's 256 MiB matrix: not a part of the steps' memory
-    torch.cuda.empty_cache()
-    cpu_reference(model, cfg, device)
-
-    acc = zero_metrics(device)
-    counts = run_steps(step, acc, batches, PROGRESS)
-    # two contexts at one scale: one projection and one warp each, per step
-    want = {"softargmax_fwd": 2 * STEPS, "softargmax_bwd": 2 * STEPS,
-            "warp_fwd": 2 * STEPS, "warp_bwd": 2 * STEPS}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
-    return counts, real
+    result = {}
+    for dt, n in ((dtype, STEPS), (None, NRS_F32_STEPS)):
+        model = setup_model(cfg.model, device=device, seed=0, dtype=dt)
+        optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler,
+                                              steps_per_epoch=len(ds))
+        step = make_train_step(model, optimizer, scheduler,
+                               compute_dtype=dt or torch.float32)
+        if dt is dtype:
+            proj_err, (direction, rays) = real_tensor_projection(model, batches[0], device,
+                                                                 temperature)
+            real = time_softargmax(direction, rays, temperature,
+                                   f"the first step's direction and ray fields, "
+                                   f"T={temperature:.3e}")
+            del direction, rays
+            _blocker.clear()        # the timing's 256 MiB matrix: not a part of the steps' memory
+            torch.cuda.empty_cache()
+        rel = cpu_reference(model, cfg, device, dt)
+        log(f"NRS train steps, {dtype_name(dt)}:")
+        counts, stats = run_steps(step, zero_metrics(device), batches[:n], PROGRESS)
+        # two contexts at one scale: one projection and one warp each, per step,
+        # the warp through the variant of the images' dtype
+        suffix = "" if dt is None else "_bf16"
+        want = {key: 0 for key in counts}
+        want.update({"softargmax_fwd": 2 * n, "softargmax_bwd": 2 * n,
+                     "warp_fwd" + suffix: 2 * n, "warp_bwd" + suffix: 2 * n})
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        result[dtype_name(dt)] = dict(stats, launches=counts, cpu_loss_rel=rel)
+        del model, optimizer, scheduler, step
+        torch.cuda.empty_cache()
+    return result, real
 
 
 def run_steps(step, acc, batches, progress):
     """Drive the train steps with every launch counter set to 0 just before
-    and read just after; returns the counts."""
+    and read just after; returns the counts and {step_ms (median of the
+    steps after the first), images_per_s, peak_mib, losses}."""
     import numpy as np
     import torch
 
@@ -492,7 +551,7 @@ def run_steps(step, acc, batches, progress):
         cum = acc["loss"][0].item()
         losses.append(cum - prev)
         prev = cum
-    counts = {**sa.launch_counts, **warp.launch_counts}
+    counts = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
     peak = torch.cuda.max_memory_allocated()
     log("losses: " + ", ".join(f"{x:.6f}" for x in losses))
     log("step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
@@ -500,7 +559,10 @@ def run_steps(step, acc, batches, progress):
     log(f"peak memory allocated: {peak / 2**20:.1f} MiB; launches: {counts}")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    return counts
+    med = statistics.median(step_ms[1:])
+    images = len(batches[0]["rgb"])
+    return counts, dict(step_ms=med, images_per_s=images / med * 1e3,
+                        peak_mib=peak / 2**20, losses=losses)
 
 
 def kitti_config():
@@ -587,18 +649,39 @@ def warp_kernel_phase(device, shapes):
         err["fwd"] = max(err["fwd"], e_fwd)
         err["bwd"] = max(err["bwd"], e_dc, e_di)
 
+        # the bfloat16-image variants on the same case: the plain version on
+        # the widened image is the same function
+        img16 = image.bfloat16()
+        out16 = warp.warp_fwd_cuda(img16, coords, pad)
+        _, d_coords16 = warp.warp_bwd_cuda(img16, coords, grad, pad)
+        torch.cuda.synchronize()
+        cp = coords.clone().requires_grad_()
+        out_p = warp.grid_sample_plain(img16.float(), cp, pad)
+        (out_p * grad).sum().backward()
+        e_fwd = (out16 - out_p).abs().max().item()
+        e_dc = (d_coords16 - cp.grad).abs().max().item()
+        rel = e_dc / cp.grad.abs().max().item()
+        log(f"warp bf16 image, same case: max |d out| {e_fwd:.3e}; d_coords {e_dc:.3e}, "
+            f"{rel:.3e} of the largest")
+        if not (e_fwd <= TOL_WARP_FWD and rel <= TOL_WARP_GRAD):
+            raise AssertionError("bfloat16-image warp kernel disagrees with its plain version")
+        if not (torch.isfinite(out16).all() and torch.isfinite(d_coords16).all()):
+            raise AssertionError("non-finite bfloat16-image warp kernel output")
+        err["fwd_bf16"] = max(err.get("fwd_bf16", 0.0), e_fwd)
+        err["bwd_bf16"] = max(err.get("bwd_bf16", 0.0), e_dc)
+
     # times at the main path's shapes: zeros padding, C = 3, image and output
     # of one size, the image is data (no d image)
     gen = torch.Generator().manual_seed(1)
-    rows = {"fwd": [], "bwd": []}
+    rows = {"fwd": [], "bwd": [], "fwd_bf16": [], "bwd_bf16": []}
     for b, h, w in shapes:
         image = torch.rand((b, h, w, 3), generator=gen).to(device)
         coords = smooth_coords(gen, b, h, w, device)
         grad = torch.randn((b, h, w, 3), generator=gen).to(device)
         nchw = image.permute(0, 3, 1, 2)
 
-        def library(c):
-            return F.grid_sample(nchw, c, mode="bilinear", padding_mode="zeros",
+        def library(c, im=nchw):
+            return F.grid_sample(im, c, mode="bilinear", padding_mode="zeros",
                                  align_corners=True)
 
         k_fwd = time_ms(lambda: warp.warp_fwd_cuda(image, coords))
@@ -623,17 +706,54 @@ def warp_kernel_phase(device, shapes):
                                   library_ms=lib))
             log(f"warp_{key} at [{b},{h},{w},3]: kernel {k:.4f} ms, plain {pl:.3f}, "
                 f"F.grid_sample {lib:.4f}, bound {bounds[key][0]:.4f} ({bounds[key][1]})")
+
+        # the bfloat16 image: the variants beside the float32 kernel on the
+        # widened image and the route they replace, image.float() then
+        # F.grid_sample (no one PyTorch call takes a bfloat16 image at float32
+        # coordinates, so library_ms is null)
+        img16 = image.bfloat16()
+        k_fwd = time_ms(lambda: warp.warp_fwd_cuda(img16, coords))
+        k_bwd = time_ms(lambda: warp.warp_bwd_cuda(img16, coords, grad))
+        with torch.no_grad():
+            p_fwd = time_ms(lambda: warp.grid_sample_plain(img16.float(), coords))
+            r_fwd = time_ms(lambda: library(coords, img16.float().permute(0, 3, 1, 2)))
+            # what the wrapper did before the variants: the cast, then the
+            # float32 kernel
+            c_fwd = time_ms(lambda: warp.warp_fwd_cuda(img16.float(), coords))
+        cp = coords.clone().requires_grad_()
+        out_p = (warp.grid_sample_plain(img16.float(), cp) * grad).sum()
+        p_bwd = time_ms(lambda: torch.autograd.grad(out_p, cp, retain_graph=True))
+        cl = coords.clone().requires_grad_()
+        out_l = (library(cl, img16.float().permute(0, 3, 1, 2)) * grad.permute(0, 3, 1, 2)).sum()
+        r_bwd = time_ms(lambda: torch.autograd.grad(out_l, cl, retain_graph=True))
+        # forward: coords 8 B, image 6 B, output 12 B per pixel; the backward
+        # reads the cotangent (12 B) and writes d coords (8 B), no output
+        bounds = {"fwd": bound_ms(px * (8 + 6 + 12), px * (WARP_OPS["fwd"][0] + 3 * WARP_OPS["fwd"][1])),
+                  "bwd": bound_ms(px * (8 + 6 + 12 + 8), px * (WARP_OPS["bwd"][0] + 3 * WARP_OPS["bwd"][1]))}
+        f32 = {"fwd": rows["fwd"][-1]["ms"], "bwd": rows["bwd"][-1]["ms"]}
+        cast = {"fwd": c_fwd, "bwd": f32["bwd"]}       # the backward has no cast
+        for key, k, pl, route in (("fwd", k_fwd, p_fwd, r_fwd), ("bwd", k_bwd, p_bwd, r_bwd)):
+            rows[key + "_bf16"].append(dict(
+                shape=[b, h, w, 3], ms=k, plain_ms=pl, bound_ms=bounds[key][0],
+                bound_by=bounds[key][1], library_ms=None, float32_kernel_ms=f32[key],
+                cast_kernel_ms=cast[key], cast_grid_sample_ms=route))
+            log(f"warp_{key}_bf16 at [{b},{h},{w},3]: kernel {k:.4f} ms, float32 kernel "
+                f"{f32[key]:.4f}, image.float() + float32 kernel {cast[key]:.4f}, "
+                f"image.float() + F.grid_sample {route:.4f}, plain {pl:.3f}, "
+                f"bound {bounds[key][0]:.4f} ({bounds[key][1]})")
     # the line's headline numbers are those of the finest scale; the other
     # three scales go along under by_shape
     return {f"warp_{key}": dict(max_abs_err=err[key], by_shape=rows[key],
+                                dtype="bfloat16" if key.endswith("bf16") else "float32",
                                 **{k: v for k, v in rows[key][0].items() if k != "shape"})
-            for key in ("fwd", "bwd")}
+            for key in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
 
 
-def flagship_view_synthesis(model, batch, device):
+def flagship_view_synthesis(model, batch, device, dtype):
     """view_synthesis through the warp kernels vs the plain version, value
-    and d coords, on the first step's real depths and poses at every scale
-    (the model's state is untouched: GroupNorm keeps no statistics)."""
+    and d coords, on the first step's real depths and poses at every scale,
+    the images in the compute dtype (the model's state is untouched:
+    GroupNorm keeps no statistics)."""
     import torch
 
     from packnet_sfm_tpu_torch.engine.train import prepare_train_batch
@@ -645,7 +765,7 @@ def flagship_view_synthesis(model, batch, device):
     from packnet_sfm_tpu_torch.ops.image import interpolate_image
 
     worst_out, worst_rel = 0.0, 0.0
-    b = prepare_train_batch(batch, device)
+    b = prepared(batch, device, dtype)
     with torch.no_grad():
         out = model_forward(model, b, train=True)
     full_w = b["rgb"].shape[2]
@@ -660,7 +780,7 @@ def flagship_view_synthesis(model, batch, device):
             grad = torch.randn(ref_s.shape, generator=gen).to(device)
             ck, cp = coords.clone().requires_grad_(), coords.clone().requires_grad_()
             kern = warp.grid_sample(ref_s, ck)
-            plain = warp.grid_sample_plain(ref_s, cp)
+            plain = warp.grid_sample_plain(ref_s.float(), cp)
             (kern * grad).sum().backward()
             (plain * grad).sum().backward()
             if not (torch.isfinite(kern).all() and torch.isfinite(ck.grad).all()):
@@ -668,16 +788,18 @@ def flagship_view_synthesis(model, batch, device):
             worst_out = max(worst_out, (kern - plain).abs().max().item())
             worst_rel = max(worst_rel, (ck.grad - cp.grad).abs().max().item()
                             / cp.grad.abs().max().item())
-    log(f"view_synthesis on the first step's depths and poses, 4 scales x 2 contexts: kernel "
+    log(f"view_synthesis on the first step's depths and poses, 4 scales x 2 contexts, "
+        f"{dtype_name(dtype)} images: kernel "
         f"vs plain max |d out| {worst_out:.3e} (tolerance {TOL_WARP_FWD:g}), d coords "
         f"{worst_rel:.3e} of the largest (tolerance {TOL_WARP_GRAD:g})")
     if not (worst_out <= TOL_WARP_FWD and worst_rel <= TOL_WARP_GRAD):
         raise AssertionError("view_synthesis through the kernels disagrees with plain")
 
 
-def flagship_cpu_reference(model, cfg, device):
+def flagship_cpu_reference(model, cfg, device, dtype):
     """model_loss at 64x96, batch 2, on the card (kernels) and on the CPU
-    (plain version) with the same weights, jitter and flip draw."""
+    (plain version) with the same weights, jitter and flip draw, in the
+    model's compute dtype."""
     import numpy as np
     import torch
 
@@ -691,37 +813,42 @@ def flagship_cpu_reference(model, cfg, device):
     rng = np.random.default_rng(7)
     jitter = [draw_jitter_params(cfg.datasets.augmentation.jittering, rng) for _ in range(2)]
     batch = collate_train_batch([ds[0], ds[1]], jitter)
-    cpu_model = setup_model(cfg.model, device="cpu")
+    cpu_model = setup_model(cfg.model, device="cpu", dtype=dtype)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     losses = {}
     for name, m, dev in (("card", model, device), ("cpu", cpu_model, "cpu")):
         gen = torch.Generator().manual_seed(0)      # first draw 0.4963 < 0.5: flipped
         with torch.no_grad():
-            losses[name] = model_loss(m, prepare_train_batch(batch, dev), generator=gen)[0].item()
+            losses[name] = model_loss(m, prepared(batch, dev, dtype), generator=gen)[0].item()
     rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
-    log(f"model_loss 64x96 batch 2, flipped: card {losses['card']:.7f} cpu {losses['cpu']:.7f} "
-        f"rel {rel:.2e} (tolerance {TOL_LOSS_CPU:g})")
-    if not rel <= TOL_LOSS_CPU:
+    tol = TOL_LOSS_CPU if dtype is None else TOL_LOSS_CPU_BF16
+    log(f"model_loss 64x96 batch 2, flipped, {dtype_name(dtype)}: card {losses['card']:.7f} "
+        f"cpu {losses['cpu']:.7f} rel {rel:.2e} (tolerance {tol:g})")
+    if not rel <= tol:
         raise AssertionError("model_loss on the card disagrees with the CPU")
+    return rel
 
 
 def flagship_phase(device, cfg):
+    """Phase 4: the flagship step as its config says (bfloat16), then in
+    float32 beside it. Returns {dtype: the steps' numbers}."""
     import numpy as np
     import torch
 
     from packnet_sfm_tpu_torch.datasets.augmentations import draw_jitter_params
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset, collate_train_batch
-    from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
+    from packnet_sfm_tpu_torch.engine.factory import compute_dtype, make_optimizer, setup_model
     from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
 
     H, W = cfg.datasets.augmentation.image_shape
     bs = cfg.datasets.train.batch_size
     loss = cfg.model.loss
+    dtype = compute_dtype(cfg)
     log(f"config: {cfg.model.name}, {cfg.model.depth_net.name}-{cfg.model.depth_net.version} "
         f"+ {cfg.model.pose_net.name}, {H}x{W}, batch {bs}, {loss.num_scales} scales, "
         f"automask {loss.automask_loss}, reduce {loss.photometric_reduce_op}, flip_lr_prob "
-        f"{loss.flip_lr_prob}, jitter {tuple(cfg.datasets.augmentation.jittering)}; arch.dtype "
-        f"{cfg.arch.dtype} is not ported yet: this run trains float32")
+        f"{loss.flip_lr_prob}, jitter {tuple(cfg.datasets.augmentation.jittering)}, arch.dtype "
+        f"{cfg.arch.dtype}; then {STEPS} float32 steps")
     ds = SyntheticSfmDataset(length=STEPS * bs, height=H, width=W, seed=0)
     rng = np.random.default_rng(0)
     batches = []
@@ -730,24 +857,35 @@ def flagship_phase(device, cfg):
         jitter = [draw_jitter_params(cfg.datasets.augmentation.jittering, rng) for _ in samples]
         batches.append(collate_train_batch(samples, jitter))
 
-    t0 = time.perf_counter()
-    model = setup_model(cfg.model, device=device, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"model built in {time.perf_counter() - t0:.1f} s, {n_params / 1e6:.1f} M parameters")
-    optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler,
-                                          steps_per_epoch=STEPS)
-    step = make_train_step(model, optimizer, scheduler, num_scales=loss.num_scales,
-                           generator=torch.Generator().manual_seed(0))
-    flagship_view_synthesis(model, batches[0], device)
-    flagship_cpu_reference(model, cfg, device)
+    result = {}
+    for dt in (dtype, None):
+        t0 = time.perf_counter()
+        model = setup_model(cfg.model, device=device, seed=0, dtype=dt)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"model built in {time.perf_counter() - t0:.1f} s, {n_params / 1e6:.1f} M "
+            f"parameters, computing in {dtype_name(dt)}")
+        optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler,
+                                              steps_per_epoch=STEPS)
+        step = make_train_step(model, optimizer, scheduler, num_scales=loss.num_scales,
+                               generator=torch.Generator().manual_seed(0),
+                               compute_dtype=dt or torch.float32)
+        flagship_view_synthesis(model, batches[0], device, dt)
+        rel = flagship_cpu_reference(model, cfg, device, dt)
 
-    counts = run_steps(step, zero_metrics(device), batches, 0.0)
-    # the contexts are stacked on the batch: one warp per scale and step
-    want = {"softargmax_fwd": 0, "softargmax_bwd": 0,
-            "warp_fwd": KITTI_SCALES * STEPS, "warp_bwd": KITTI_SCALES * STEPS}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
-    return counts
+        log(f"flagship train steps, {dtype_name(dt)}:")
+        counts, stats = run_steps(step, zero_metrics(device), batches, 0.0)
+        # the contexts are stacked on the batch: one warp per scale and step,
+        # through the variant of the images' dtype
+        suffix = "" if dt is None else "_bf16"
+        want = {key: 0 for key in counts}
+        want.update({"warp_fwd" + suffix: KITTI_SCALES * STEPS,
+                     "warp_bwd" + suffix: KITTI_SCALES * STEPS})
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        result[dtype_name(dt)] = dict(stats, launches=counts, cpu_loss_rel=rel)
+        del model, optimizer, scheduler, step
+        torch.cuda.empty_cache()
+    return result
 
 
 def eval_config(kitti):
@@ -880,7 +1018,7 @@ def eval_protocol(model, cfg, step, out_dir):
         raise AssertionError("the eval protocol disagrees with its every-sample oracle")
     if saved != [f"synthetic_{i:010d}.npz" for i in range(len(ds))]:
         raise AssertionError(f"unexpected depth outputs: {saved}")
-    return diff, {m: [float(x) for x in table[m]] for m in EVAL_MODES}
+    return diff, table_lists(table), path
 
 
 def eval_phase(device, kitti):
@@ -937,7 +1075,8 @@ def eval_phase(device, kitti):
 
     result["cpu_rel_err"], result["cpu_a_err"] = eval_cpu_reference(model, cfg, metrics_cfg,
                                                                      device)
-    result["protocol_max_abs_diff"], result["table"] = eval_protocol(model, cfg, step, out_dir)
+    result["protocol_max_abs_diff"], result["table"], ckpt = eval_protocol(model, cfg, step,
+                                                                          out_dir)
 
     depth_fn = make_depth_fn(model)
     ms = []
@@ -956,11 +1095,70 @@ def eval_phase(device, kitti):
     if not (rel <= TOL_INFER and torch.isfinite(inv).all()):
         raise AssertionError("infer's depth disagrees with the eval step's straight half")
 
-    result["launches"] = {**sa.launch_counts, **warp.launch_counts}
+    result["half"] = eval_half(device, cfg, model, metrics_cfg, ckpt, result["table"], rgb)
+
+    result["launches"] = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
     log(f"launches during eval and infer: {result['launches']}")
     if any(result["launches"].values()):
         raise AssertionError("the eval path launched a kernel of the port")
     return result
+
+
+def eval_half(device, cfg, model32, metrics_cfg, ckpt, table32, rgb):
+    """Eval and infer ``--half``: the same weights built with the bfloat16
+    compute dtype, the eval step timed at B = 1 and 4; ``cli.eval.evaluate``
+    with ``half=True`` on the saved checkpoint against the float32 run's
+    table; infer's depth-only forward of the bfloat16 model against its eval
+    step's straight half."""
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.cli.eval import evaluate
+    from packnet_sfm_tpu_torch.cli.infer import make_depth_fn
+    from packnet_sfm_tpu_torch.engine.factory import setup_model
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, eval_forward, make_eval_step
+
+    log("eval --half: the same weights, computing in bfloat16")
+    model = setup_model(cfg.model, device=device, dtype=torch.bfloat16)
+    model.load_state_dict(model32.state_dict())
+    step = make_eval_step(model, metrics_cfg)
+    result = {f"B{b}": time_eval_steps(step, eval_batches(cfg, b, EVAL_GT)) for b in (1, 4)}
+
+    t0 = time.perf_counter()
+    table = evaluate(ckpt, half=True)[0]
+    secs = time.perf_counter() - t0
+    rel = {m: float(abs(table[m][0] - table32[m][0]) / abs(table32[m][0])) for m in EVAL_MODES}
+    log(f"cli.eval.evaluate(half=True) took {secs:.1f} s; abs_rel against the float32 run, "
+        "relative: " + ", ".join(f"{m} {table[m][0]:.5f} vs {table32[m][0]:.5f} ({rel[m]:.2e})"
+                                 for m in EVAL_MODES) + f" (tolerance {TOL_HALF_ABS_REL:g})")
+    if not (max(rel.values()) <= TOL_HALF_ABS_REL
+            and all(np.all(np.isfinite(table[m])) for m in EVAL_MODES)):
+        raise AssertionError("eval --half disagrees with the float32 eval")
+
+    depth_fn = make_depth_fn(model)
+    ms = []
+    for _ in range(EVAL_STEPS + 1):
+        t0 = time.perf_counter()
+        inv = depth_fn(rgb)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    straight = eval_forward(model, rgb)[:1]
+    infer_rel = ((inv - straight).abs().max() / straight.abs().max()).item()
+    med = statistics.median(ms[1:])
+    log(f"infer --half depth-only forward: median of calls 2-{len(ms)} {med:.2f} ms, "
+        f"{1e3 / med:.2f} images/s; against the bfloat16 eval step's straight half "
+        f"{infer_rel:.3e} of the largest inverse depth (tolerance {TOL_INFER_HALF:g})")
+    if not (inv.dtype == torch.float32 and infer_rel <= TOL_INFER_HALF
+            and torch.isfinite(inv).all()):
+        raise AssertionError("infer --half disagrees with the bfloat16 eval step")
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(result, abs_rel_rel_err=rel, table=table_lists(table), evaluate_seconds=secs,
+                infer_ms=med, infer_images_per_s=1e3 / med, infer_rel_err=infer_rel)
+
+
+def table_lists(table):
+    return {m: [float(x) for x in v] for m, v in table.items()}
 
 
 def train_config(filepath, max_epochs=TRAIN_EPOCHS):
@@ -1081,10 +1279,11 @@ def train_phase(device):
     warp.reset_launch_counts()
     history = trainer.fit()
     torch.cuda.synchronize()
-    counts = {**sa.launch_counts, **warp.launch_counts}
+    counts = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
     steps = trainer.step
     want = {"softargmax_fwd": 0, "softargmax_bwd": 0,
-            "warp_fwd": TRAIN_SCALES * steps, "warp_bwd": TRAIN_SCALES * steps}
+            "warp_fwd": TRAIN_SCALES * steps, "warp_bwd": TRAIN_SCALES * steps,
+            "warp_fwd_bf16": 0, "warp_bwd_bf16": 0}
     log(f"fit: {len(history)} epochs of {trainer.steps_per_epoch} steps; launches {counts}")
     if steps != TRAIN_EPOCHS * trainer.steps_per_epoch or counts != want:
         raise AssertionError(f"{steps} steps, launch counts {counts}, expected {want}")
@@ -1240,23 +1439,30 @@ def main():
     measured.update(warp_kernel_phase(device, path_shapes(kitti)))
     _blocker.clear()                # the timing's 256 MiB matrix: not a part of any step's memory
     torch.cuda.empty_cache()
-    nrs_counts, real = slice_phase(device, cfg)
+    nrs, real = slice_phase(device, cfg)
     measured["softargmax_fwd"]["by_case"].append(real["fwd"])
     measured["softargmax_bwd"]["by_case"].append(real["bwd"])
-    kitti_counts = flagship_phase(device, kitti)
+    kitti_steps = flagship_phase(device, kitti)
     torch.cuda.empty_cache()
     evaluated = eval_phase(device, kitti)
     torch.cuda.empty_cache()
     trained = train_phase(device)
 
-    # each kernel's launches are those of the train path it belongs to: the
-    # NRS steps for the soft-argmax (they also launch the warp kernels, twice
-    # a step each), the flagship steps for the warp
+    # each kernel's launches are those of the train path it belongs to, as
+    # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
+    # also launch the bfloat16-image warp, twice a step each), the flagship
+    # steps for the warp; the float32-image warp's are those of the float32
+    # flagship steps beside them
+    nrs_counts, kitti_counts = nrs["bfloat16"]["launches"], kitti_steps["bfloat16"]["launches"]
     meta = {
         "softargmax_fwd": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:105", nrs_counts),
         "softargmax_bwd": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:159", nrs_counts),
-        "warp_fwd": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
-        "warp_bwd": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
+        "warp_fwd": ("warp", "docs/bench_pallas_gather_probe.py:102",
+                     kitti_steps["float32"]["launches"]),
+        "warp_bwd": ("warp", "docs/bench_pallas_gather_probe.py:102",
+                     kitti_steps["float32"]["launches"]),
+        "warp_fwd_bf16": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
+        "warp_bwd_bf16": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -1265,10 +1471,18 @@ def main():
                      replaces=replaces, launches=counts[name], max_abs_err=m["max_abs_err"],
                      ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                      bound_by=m["bound_by"], library_ms=m.get("library_ms"))
-        for extra in ("by_shape", "by_case"):
+        for extra in ("dtype", "by_shape", "by_case"):
             if extra in m:
                 entry[extra] = m[extra]
+        if name in ("warp_fwd", "warp_bwd"):
+            # the float32 image and the bfloat16 one, at the finest scale
+            entry["by_case"] = [dict(dtype=measured[key]["dtype"], launches=launches,
+                                     **measured[key]["by_shape"][0])
+                                for key, launches in ((name, counts[name]),
+                                                      (name + "_bf16",
+                                                       kitti_counts[name + "_bf16"]))]
         kernels.append(entry)
+    print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,9 @@ Restores a checkpoint directory (``engine/checkpoint.py``), with the config
 embedded in its meta.json and an optional yaml merged over it (PyYAML is
 imported only then), runs the test split through ``Trainer.test`` and prints
 the metric tables. Runs on the card unless ``--device cpu`` is given.
-``--half`` (bfloat16) is not ported yet and raises.
+``--half`` sets ``arch.dtype: bfloat16``, as the JAX CLI does: the model
+computes in bfloat16 (``engine/factory.setup_model``); a checkpoint whose
+config says bfloat16 evaluates so without it.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ def parse_args(argv=None):
     parser.add_argument("--config", type=str, default=None,
                         help="optional yaml overriding the embedded config")
     parser.add_argument("--half", action="store_true",
-                        help="evaluate with bfloat16 compute (not ported yet)")
+                        help="evaluate with bfloat16 compute")
     parser.add_argument("--device", type=str, default="cuda")
     return parser.parse_args(argv)
 
@@ -35,13 +37,13 @@ def evaluate(checkpoint: str, config_path=None, half=False, device="cuda"):
         ConfigNode, load_config, merge_config, parse_train_config)
     from packnet_sfm_tpu_torch.engine.trainer import Trainer
 
-    if half:
-        raise NotImplementedError("--half (bfloat16) is not ported yet; see ROADMAP.md §1 item 3")
     with open(os.path.join(checkpoint, "meta.json")) as f:
         meta = json.load(f)
     config = ConfigNode.from_dict(meta["config"])
     if config_path:
         config = merge_config(config, load_config(config_path).to_dict())
+    if half:
+        config.arch.dtype = "bfloat16"
     config = parse_train_config(config)
 
     trainer = Trainer(config, device=device)

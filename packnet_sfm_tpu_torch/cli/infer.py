@@ -8,8 +8,12 @@ Loads a checkpoint directory, runs the depth network alone in eval mode
 (``make_depth_fn``), and saves the depth as npz or png, or else the image
 above its colormapped inverse depth as one png. Decoding and writing images
 needs Pillow, the colormap matplotlib; both are imported where they are
-used. Runs on the card unless ``--device cpu`` is given. ``--half``
-(bfloat16) is not ported yet and raises.
+used. Runs on the card unless ``--device cpu`` is given. ``--half`` builds
+the model with the bfloat16 compute dtype, as eval's ``--half`` does (the
+JAX CLI's ``--half`` builds a float32 model and only rounds the image to
+bfloat16, so it computes in float32: ``ROADMAP.md`` §3 (i)). Without it the
+model computes in float32, whatever the checkpoint's config says, as in the
+JAX CLI.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ def parse_args(argv=None):
     parser.add_argument("--input", type=str, required=True, help="image or folder")
     parser.add_argument("--output", type=str, required=True, help="output file or folder")
     parser.add_argument("--image_shape", type=int, nargs=2, default=None)
-    parser.add_argument("--half", action="store_true", help="bfloat16 (not ported yet)")
+    parser.add_argument("--half", action="store_true", help="bfloat16 compute")
     parser.add_argument("--save", type=str, choices=["npz", "png"], default=None,
                         help="save depth as npz/png instead of rgb+viz image")
     parser.add_argument("--device", type=str, default="cuda")
@@ -57,12 +61,11 @@ def infer_and_save(checkpoint, inp, out, image_shape=None, half=False, save=None
     from packnet_sfm_tpu_torch.engine.trainer import save_side_by_side
     from packnet_sfm_tpu_torch.utils.save import write_depth
 
-    if half:
-        raise NotImplementedError("--half (bfloat16) is not ported yet; see ROADMAP.md §1 item 3")
     with open(os.path.join(checkpoint, "meta.json")) as f:
         meta = json.load(f)
     config = ConfigNode.from_dict(meta["config"])
-    model = setup_model(config.model, device=device)
+    model = setup_model(config.model, device=device,
+                        dtype=torch.bfloat16 if half else None)
     restore_checkpoint(checkpoint, model)
     depth_fn = make_depth_fn(model)
     dev = next(model.parameters()).device

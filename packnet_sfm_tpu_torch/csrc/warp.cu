@@ -55,10 +55,28 @@
 // carried over: no padded 4-tap stack, no index array, no packing of lanes;
 // those answered a machine without a gather. A deterministic d image is
 // left for a later change.
+//
+// The bfloat16 image. The JAX package's bfloat16 policy warps a bfloat16
+// image at float32 coordinates and gets float32 back (its _lerp_taps
+// promotes the taps). The image's element type is a template parameter
+// beside C: a bfloat16 tap is widened to float32 exactly (its 16 bits are
+// the top half of the float's) and every operation stays in float32, so the
+// variant computes the float32 kernel's function of the widened image,
+// reading 2 bytes a channel where that reads 4. Its backward gives d coords
+// only: nothing differentiates a bfloat16 image, and its launcher has no
+// d image argument.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// A tap, widened to float32.
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float((unsigned)bits << 16);
+}
 
 constexpr int THREADS = 256;
 
@@ -103,17 +121,18 @@ __device__ __forceinline__ Taps make_taps(float cx, float cy, int h, int w,
   return t;
 }
 
-// C > 0: the channel count, known to the compiler. C == 0: any count, `c_rt`.
-// The grid is (blocks of one image, images).
-template <int C>
+// T: the image's element type (float or __nv_bfloat16). C > 0: the channel
+// count, known to the compiler. C == 0: any count, `c_rt`. The grid is
+// (blocks of one image, images).
+template <typename T, int C>
 __global__ void __launch_bounds__(THREADS)
-warp_fwd_kernel(const float* __restrict__ image,
+warp_fwd_kernel(const T* __restrict__ image,
                 const float* __restrict__ coords, float* __restrict__ out,
                 int per_image, int h, int w, int c_rt, int border) {
   const int c = C > 0 ? C : c_rt;
   const int pix = blockIdx.x * THREADS + threadIdx.x;  // within the image
   const size_t b = blockIdx.y;
-  const float* img = image + b * h * w * c;
+  const T* img = image + b * h * w * c;
   const float2* crd = reinterpret_cast<const float2*>(coords) + b * per_image;
   float* o = out + (b * per_image + pix) * c;
   // a thread past the end samples the image's centre and stores nothing
@@ -124,42 +143,42 @@ warp_fwd_kernel(const float* __restrict__ image,
 
   if constexpr (C == 0) {
     if (!live) return;
-    const float* p00 = img + t.o00 * c;
-    const float* p01 = img + t.o01 * c;
-    const float* p10 = img + t.o10 * c;
-    const float* p11 = img + t.o11 * c;
+    const T* p00 = img + t.o00 * c;
+    const T* p01 = img + t.o01 * c;
+    const T* p10 = img + t.o10 * c;
+    const T* p11 = img + t.o11 * c;
     for (int ch = 0; ch < c; ++ch) {
-      const float v00 = t.m00 != 0.f ? __ldg(p00 + ch) : 0.f;
-      const float v01 = t.m01 != 0.f ? __ldg(p01 + ch) : 0.f;
-      const float v10 = t.m10 != 0.f ? __ldg(p10 + ch) : 0.f;
-      const float v11 = t.m11 != 0.f ? __ldg(p11 + ch) : 0.f;
+      const float v00 = t.m00 != 0.f ? ld(p00 + ch) : 0.f;
+      const float v01 = t.m01 != 0.f ? ld(p01 + ch) : 0.f;
+      const float v10 = t.m10 != 0.f ? ld(p10 + ch) : 0.f;
+      const float v11 = t.m11 != 0.f ? ld(p11 + ch) : 0.f;
       const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
       const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
       o[ch] = top * (1.0f - t.wy) + bot * t.wy;
     }
   } else {
     float v[4][C];
-    const float* p00 = img + t.o00 * C;
-    const float* p10 = img + t.o10 * C;
+    const T* p00 = img + t.o00 * C;
+    const T* p10 = img + t.o10 * C;
     // all four taps inside the image: o01 = o00 + 1 and o11 = o10 + 1
     if (t.o01 == t.o00 + 1 && t.o11 == t.o10 + 1 &&
         t.m00 * t.m01 * t.m10 * t.m11 != 0.f) {
 #pragma unroll
       for (int ch = 0; ch < C; ++ch) {
-        v[0][ch] = __ldg(p00 + ch);
-        v[1][ch] = __ldg(p00 + C + ch);
-        v[2][ch] = __ldg(p10 + ch);
-        v[3][ch] = __ldg(p10 + C + ch);
+        v[0][ch] = ld(p00 + ch);
+        v[1][ch] = ld(p00 + C + ch);
+        v[2][ch] = ld(p10 + ch);
+        v[3][ch] = ld(p10 + C + ch);
       }
     } else {
-      const float* p01 = img + t.o01 * C;
-      const float* p11 = img + t.o11 * C;
+      const T* p01 = img + t.o01 * C;
+      const T* p11 = img + t.o11 * C;
 #pragma unroll
       for (int ch = 0; ch < C; ++ch) {
-        v[0][ch] = t.m00 != 0.f ? __ldg(p00 + ch) : 0.f;
-        v[1][ch] = t.m01 != 0.f ? __ldg(p01 + ch) : 0.f;
-        v[2][ch] = t.m10 != 0.f ? __ldg(p10 + ch) : 0.f;
-        v[3][ch] = t.m11 != 0.f ? __ldg(p11 + ch) : 0.f;
+        v[0][ch] = t.m00 != 0.f ? ld(p00 + ch) : 0.f;
+        v[1][ch] = t.m01 != 0.f ? ld(p01 + ch) : 0.f;
+        v[2][ch] = t.m10 != 0.f ? ld(p10 + ch) : 0.f;
+        v[3][ch] = t.m11 != 0.f ? ld(p11 + ch) : 0.f;
       }
     }
 #pragma unroll
@@ -172,9 +191,11 @@ warp_fwd_kernel(const float* __restrict__ image,
   }
 }
 
-// d_image may be null: then only d_coords is written.
+// d_image may be null: then only d_coords is written (always so for a
+// bfloat16 image).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-warp_bwd_kernel(const float* __restrict__ image,
+warp_bwd_kernel(const T* __restrict__ image,
                 const float* __restrict__ coords,
                 const float* __restrict__ grad_out,
                 float* __restrict__ d_coords, float* __restrict__ d_image,
@@ -185,21 +206,21 @@ warp_bwd_kernel(const float* __restrict__ image,
   const int b = (int)(i / per_image);
   const Taps t = make_taps(coords[2 * i], coords[2 * i + 1], h, w, border);
   const size_t base = (size_t)b * h * w * c;
-  const float* img = image + base;
-  const float* p00 = img + (size_t)t.o00 * c;
-  const float* p01 = img + (size_t)t.o01 * c;
-  const float* p10 = img + (size_t)t.o10 * c;
-  const float* p11 = img + (size_t)t.o11 * c;
+  const T* img = image + base;
+  const T* p00 = img + (size_t)t.o00 * c;
+  const T* p01 = img + (size_t)t.o01 * c;
+  const T* p10 = img + (size_t)t.o10 * c;
+  const T* p11 = img + (size_t)t.o11 * c;
   const float* g = grad_out + (size_t)i * c;
   const float w00 = (1.0f - t.wx) * (1.0f - t.wy), w01 = t.wx * (1.0f - t.wy);
   const float w10 = (1.0f - t.wx) * t.wy, w11 = t.wx * t.wy;
   float dwx = 0.f, dwy = 0.f;
   for (int ch = 0; ch < c; ++ch) {
     const float gc = g[ch];
-    const float v00 = t.m00 != 0.f ? __ldg(p00 + ch) : 0.f;
-    const float v01 = t.m01 != 0.f ? __ldg(p01 + ch) : 0.f;
-    const float v10 = t.m10 != 0.f ? __ldg(p10 + ch) : 0.f;
-    const float v11 = t.m11 != 0.f ? __ldg(p11 + ch) : 0.f;
+    const float v00 = t.m00 != 0.f ? ld(p00 + ch) : 0.f;
+    const float v01 = t.m01 != 0.f ? ld(p01 + ch) : 0.f;
+    const float v10 = t.m10 != 0.f ? ld(p10 + ch) : 0.f;
+    const float v11 = t.m11 != 0.f ? ld(p11 + ch) : 0.f;
     const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
     const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
     dwx += gc * ((1.0f - t.wy) * (v01 - v00) + t.wy * (v11 - v10));
@@ -226,16 +247,9 @@ long long blocks_for(long long n) { return (n + THREADS - 1) / THREADS; }
 
 __global__ void empty_kernel() {}
 
-}  // namespace
-
-// All tensors are contiguous float32 on the device: image and d_image
-// [b, h, w, c]; coords and d_coords [b, ho, wo, 2]; out and grad_out
-// [b, ho, wo, c]. padding: 0 zeros, 1 border. d_image is null or zeroed.
-// Both launch on `stream` and return cudaGetLastError() (0 on success).
-
-extern "C" int warp_fwd(const float* image, const float* coords, float* out,
-                        int b, int h, int w, int c, int ho, int wo,
-                        int padding, void* stream) {
+template <typename T>
+int launch_fwd(const T* image, const float* coords, float* out, int b, int h,
+               int w, int c, int ho, int wo, int padding, void* stream) {
   if (bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1))
     return (int)cudaErrorInvalidValue;
   const int per_image = ho * wo;
@@ -243,35 +257,73 @@ extern "C" int warp_fwd(const float* image, const float* coords, float* out,
   for (int b0 = 0; b0 < b; b0 += 65535) {
     const int nb = b - b0 < 65535 ? b - b0 : 65535;
     const dim3 grid((unsigned)blocks_for(per_image), (unsigned)nb);
-    const float* im = image + (size_t)b0 * h * w * c;
+    const T* im = image + (size_t)b0 * h * w * c;
     const float* co = coords + (size_t)b0 * per_image * 2;
     float* ou = out + (size_t)b0 * per_image * c;
     cudaStream_t st = (cudaStream_t)stream;
     if (c == 3)
-      warp_fwd_kernel<3><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
+      warp_fwd_kernel<T, 3><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
     else if (c == 1)
-      warp_fwd_kernel<1><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
+      warp_fwd_kernel<T, 1><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
     else
-      warp_fwd_kernel<0><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
+      warp_fwd_kernel<T, 0><<<grid, THREADS, 0, st>>>(im, co, ou, per_image, h, w, c, padding);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-extern "C" int warp_bwd(const float* image, const float* coords,
-                        const float* grad_out, float* d_coords,
-                        float* d_image, int b, int h, int w, int c, int ho,
-                        int wo, int padding, void* stream) {
+template <typename T>
+int launch_bwd(const T* image, const float* coords, const float* grad_out,
+               float* d_coords, float* d_image, int b, int h, int w, int c,
+               int ho, int wo, int padding, void* stream) {
   if (bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)b * ho * wo;
   if (n == 0) return 0;
   if (blocks_for(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  warp_bwd_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  warp_bwd_kernel<T><<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
       image, coords, grad_out, d_coords, d_image, n, ho * wo, h, w, c,
       padding);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// All tensors are contiguous on the device. image [b, h, w, c]: float32, or
+// bfloat16 for the _bf16 launchers; d_image [b, h, w, c] float32; coords
+// and d_coords [b, ho, wo, 2], out and grad_out [b, ho, wo, c], float32.
+// padding: 0 zeros, 1 border. d_image is null or zeroed. All launch on
+// `stream` and return cudaGetLastError() (0 on success).
+
+extern "C" int warp_fwd(const float* image, const float* coords, float* out,
+                        int b, int h, int w, int c, int ho, int wo,
+                        int padding, void* stream) {
+  return launch_fwd(image, coords, out, b, h, w, c, ho, wo, padding, stream);
+}
+
+extern "C" int warp_bwd(const float* image, const float* coords,
+                        const float* grad_out, float* d_coords,
+                        float* d_image, int b, int h, int w, int c, int ho,
+                        int wo, int padding, void* stream) {
+  return launch_bwd(image, coords, grad_out, d_coords, d_image, b, h, w, c,
+                    ho, wo, padding, stream);
+}
+
+extern "C" int warp_fwd_bf16(const void* image, const float* coords,
+                             float* out, int b, int h, int w, int c, int ho,
+                             int wo, int padding, void* stream) {
+  return launch_fwd(static_cast<const __nv_bfloat16*>(image), coords, out, b,
+                    h, w, c, ho, wo, padding, stream);
+}
+
+extern "C" int warp_bwd_bf16(const void* image, const float* coords,
+                             const float* grad_out, float* d_coords, int b,
+                             int h, int w, int c, int ho, int wo, int padding,
+                             void* stream) {
+  return launch_bwd(static_cast<const __nv_bfloat16*>(image), coords,
+                    grad_out, d_coords, static_cast<float*>(nullptr), b, h, w,
+                    c, ho, wo, padding, stream);
 }
 
 // One warp that does nothing: the time no launch on the card can go under.

@@ -4,6 +4,11 @@ Ported: the PackNet01, PackNetSlim01, DepthResNet and RaySurfaceResNet
 depth networks, PoseNet, the SelfSupModel and GenericSelfSupModel kinds, and
 the StepLR and CosineAnnealingLR schedules; other networks and kinds raise
 ``NotImplementedError`` until their slice lands (ROADMAP.md).
+
+``dtype`` is the compute dtype (None: float32), passed as the JAX package
+passes it: to PackNet01, PackNetSlim01 and PoseNet only. DepthResNet and
+RaySurfaceResNet take none and compute in float32 on any input. Parameters
+stay float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -24,12 +29,12 @@ from packnet_sfm_tpu_torch.nn.posenet import PoseNet
 from packnet_sfm_tpu_torch.nn.raysurface import RaySurfaceResNet
 
 
-def setup_depth_net(cfg: ConfigNode):
+def setup_depth_net(cfg: ConfigNode, dtype=None):
     version = cfg.get("version", "")
     if cfg.name in ("PackNet01", "PackNetSlim01"):
         net = PackNet01 if cfg.name == "PackNet01" else PackNetSlim01
         return net(version=version[1:] or "A", dropout=cfg.get("dropout", 0.0) or None,
-                   remat=bool(cfg.get("remat", False)))
+                   remat=bool(cfg.get("remat", False)), dtype=dtype)
     if cfg.name == "DepthResNet":
         return DepthResNet(version=version.replace("pt", "") or "18")
     if cfg.name == "RaySurfaceResNet":
@@ -37,16 +42,17 @@ def setup_depth_net(cfg: ConfigNode):
     raise NotImplementedError(f"depth net {cfg.name!r} is not ported yet; see ROADMAP.md")
 
 
-def setup_pose_net(cfg: ConfigNode):
+def setup_pose_net(cfg: ConfigNode, dtype=None):
     if cfg.name == "PoseNet":
-        return PoseNet()
+        return PoseNet(dtype=dtype)
     if cfg.name in ("", None):
         return None
     raise NotImplementedError(f"pose net {cfg.name!r} is not ported yet; see ROADMAP.md")
 
 
-def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
-    """Build the SfmModelDef of config.model on ``device``.
+def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0, dtype=None) -> SfmModelDef:
+    """Build the SfmModelDef of config.model on ``device``, computing in
+    ``dtype`` where the network takes one (see the module docstring).
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     with the JAX package's initializers, then moved to ``device``.
@@ -56,9 +62,9 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
         raise NotImplementedError(f"model {cfg.name!r} is not ported yet; see ROADMAP.md")
     loss = cfg.loss
     gen = torch.Generator().manual_seed(seed)
-    depth_net = setup_depth_net(cfg.depth_net)
+    depth_net = setup_depth_net(cfg.depth_net, dtype)
     depth_net.init_weights(gen)
-    pose_net = setup_pose_net(cfg.pose_net)
+    pose_net = setup_pose_net(cfg.pose_net, dtype)
     if pose_net is not None:
         pose_net.init_weights(gen)
     knobs = dict(
@@ -80,6 +86,12 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0) -> SfmModelDef:
                         flip_lr_prob=loss.flip_lr_prob,
                         upsample_depth_maps=loss.upsample_depth_maps)
     return model.to(device)
+
+
+def compute_dtype(config: ConfigNode):
+    """``arch.dtype`` as a torch dtype: bfloat16, or else None (float32), as
+    the JAX trainer reads it."""
+    return torch.bfloat16 if config.arch.get("dtype") == "bfloat16" else None
 
 
 def setup_metrics_config(cfg: ConfigNode) -> DepthMetricsConfig:

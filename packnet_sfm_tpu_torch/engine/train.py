@@ -6,8 +6,12 @@ adding the step's metrics to a device-side accumulator {key: [sum, count]}
 that the caller reads once per epoch. ``make_eval_step`` returns the flip-
 fused depth evaluation of a batch: one forward of the straight and flipped
 images, the flip post-process and the 7 metrics in 4 modes, per sample.
-Float32 only; the bfloat16 policy of ``arch.dtype`` comes in a later slice
-(ROADMAP.md).
+
+The bfloat16 policy (``arch.dtype``) is the JAX package's: the networks
+compute in the dtype they were built with (``engine/factory.setup_model``),
+parameters, gradients and Adam's moments stay float32, and the train step
+casts the prepared batch's images to the compute dtype and the loss back to
+float32. The eval step casts nothing: the model casts inside.
 """
 
 from __future__ import annotations
@@ -86,10 +90,30 @@ def _microbatches(batch: Dict, grad_accum: int):
                for k, v in batch.items()}
 
 
+def cast_batch(batch: Dict, dtype) -> Dict:
+    """The prepared batch with its floating images cast to ``dtype``.
+
+    The JAX package casts every floating leaf, the intrinsics too, which
+    rounds fx = 721.5377 to 720 in bfloat16 (``ROADMAP.md`` §3 (h)); the
+    port keeps 'intrinsics' in float32. An image that two keys share (the
+    originals without jitter) is cast once and stays shared."""
+    done: Dict[int, torch.Tensor] = {}
+
+    def cast(t):
+        if t.is_floating_point() and id(t) not in done:
+            done[id(t)] = t.to(dtype)
+        return done.get(id(t), t)
+
+    return {k: v if k == "intrinsics" else
+            [cast(t) for t in v] if isinstance(v, list) else cast(v)
+            for k, v in batch.items()}
+
+
 def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, scheduler=None,
                     num_scales: Optional[int] = None, grad_accum: int = 1,
-                    generator: Optional[torch.Generator] = None):
-    """Returns step(acc, batch, progress) -> acc, in float32.
+                    generator: Optional[torch.Generator] = None,
+                    compute_dtype: torch.dtype = torch.float32):
+    """Returns step(acc, batch, progress) -> acc.
 
     ``batch`` is a host batch (see ``prepare_train_batch``); ``progress``
     is the Python float fraction of training done. ``num_scales`` overrides
@@ -97,18 +121,23 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     microbatches whose gradients and metrics are averaged before the one
     optimizer step. ``generator`` (a CPU ``torch.Generator``) draws the
     training flip of ``SelfSupModel``; without it there is no flip.
+    ``compute_dtype`` other than float32 casts the prepared batch's images
+    to it (``cast_batch``); the model must have been built with it. The
+    loss is float32 either way.
     """
     device = next(model.parameters()).device
 
     def step(acc: Dict[str, torch.Tensor], batch: Dict, progress: float = 0.0):
         batch = prepare_train_batch(batch, device)
+        if compute_dtype != torch.float32:
+            batch = cast_batch(batch, compute_dtype)
         optimizer.zero_grad(set_to_none=True)
         totals: Dict[str, torch.Tensor] = {}
         parts = [batch] if grad_accum <= 1 else _microbatches(batch, grad_accum)
         for part in parts:
             loss, (metrics, _) = model_loss(model, part, progress=progress,
                                             num_scales=num_scales, generator=generator)
-            (loss / max(grad_accum, 1)).backward()
+            (loss.float() / max(grad_accum, 1)).backward()
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
         optimizer.step()

@@ -26,8 +26,9 @@ train split.
   a run of N epochs equals N1 epochs, a save, a resume and N - N1 epochs,
   bit for bit on the CPU.
 
-``arch.dtype: bfloat16`` waits for the bf16 slice and raises
-``NotImplementedError`` naming ROADMAP.md §1 item 3.
+``arch.dtype: bfloat16`` builds the model with the bfloat16 compute dtype
+(``engine/factory.setup_model``) and the train steps cast their batches to
+it, as the JAX trainer does; evaluation casts nothing beyond the model.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from packnet_sfm_tpu_torch.engine.checkpoint import (
     save_checkpoint,
 )
 from packnet_sfm_tpu_torch.engine.factory import (
+    compute_dtype,
     make_optimizer,
     setup_metrics_config,
     setup_model,
@@ -73,10 +75,6 @@ class Trainer:
 
     def __init__(self, config: ConfigNode, device="cuda", profile_dir: Optional[str] = None):
         self.device = resolve_device(device)
-        if config.arch.get("dtype", "float32") == "bfloat16":
-            raise NotImplementedError(
-                "arch.dtype bfloat16 is not ported yet (the port computes in float32); "
-                "see ROADMAP.md §1 item 3")
         self.config = config
         self.seed = config.arch.seed
         self.max_epochs = config.arch.max_epochs
@@ -84,7 +82,9 @@ class Trainer:
         self.min_epochs = config.arch.get("min_epochs", 0)
         self.current_epoch = 0
         self.profile_dir = profile_dir
-        self.model = setup_model(config.model, device=self.device, seed=self.seed)
+        self.dtype = compute_dtype(config)
+        self.model = setup_model(config.model, device=self.device, seed=self.seed,
+                                 dtype=self.dtype)
         self.metrics_cfg = setup_metrics_config(config)
         aug = config.datasets.augmentation
         self.val_datasets = setup_dataset(config.datasets.validation, "validation", aug,
@@ -238,7 +238,8 @@ class Trainer:
         if num_scales not in self._train_steps:
             self._train_steps[num_scales] = make_train_step(
                 self.model, self.optimizer, self.scheduler, num_scales=num_scales,
-                grad_accum=self.config.arch.get("grad_accum", 1), generator=self.generator)
+                grad_accum=self.config.arch.get("grad_accum", 1), generator=self.generator,
+                compute_dtype=self.dtype or torch.float32)
         return self._train_steps[num_scales]
 
     # ------------------------------------------------------------------ loops

@@ -48,7 +48,14 @@ def inv2depth(inv_depth: torch.Tensor) -> torch.Tensor:
 def _photometric_map(est: torch.Tensor, ref: torch.Tensor,
                      cfg: MultiViewPhotometricConfig) -> torch.Tensor:
     """Per-pixel L1 + SSIM photometric residual [B, H, W, 1], then the
-    optional clip at mean + clip_loss * std (std with ddof 0, as jnp.std)."""
+    optional clip at mean + clip_loss * std (std with ddof 0, as jnp.std).
+
+    Computed in float32 on any input. In bfloat16 the JAX package's jnp
+    types make SSIM's moments of a bfloat16 image bfloat16 too, but XLA
+    computes each fused chain of them in float32 and rounds once; rounding
+    every op, as eager PyTorch would, cancels E[y^2] - E[y]^2 in 8 bits and
+    moves the flagship loss by 5e-3 of itself."""
+    est, ref = est.float(), ref.float()
     l1 = torch.mean(torch.abs(est - ref), dim=-1, keepdim=True)
     if cfg.ssim_loss_weight > 0.0:
         s = torch.mean(ssim_loss(est, ref, cfg.C1, cfg.C2), dim=-1, keepdim=True)

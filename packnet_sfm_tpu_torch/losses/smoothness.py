@@ -15,7 +15,10 @@ def normalize_inv_depth(inv_depth: torch.Tensor) -> torch.Tensor:
 
 def calc_smoothness(inv_depth: torch.Tensor, image: torch.Tensor):
     """Edge-weighted inverse-depth gradients for one scale: inv_depth
-    [B, H, W, 1], image [B, H, W, 3] -> ([B, H, W-1, 1], [B, H-1, W, 1])."""
+    [B, H, W, 1], image [B, H, W, 3] -> ([B, H, W-1, 1], [B, H-1, W, 1]).
+    The edge weights are computed in float32 on any image, as XLA computes
+    the JAX package's fused chain of them on a bfloat16 image."""
+    image = image.float()
     inv_norm = normalize_inv_depth(inv_depth)
     wx = torch.exp(-torch.mean(torch.abs(gradient_x(image)), dim=-1, keepdim=True))
     wy = torch.exp(-torch.mean(torch.abs(gradient_y(image)), dim=-1, keepdim=True))

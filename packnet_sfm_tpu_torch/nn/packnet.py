@@ -13,7 +13,8 @@ run NCHW. Submodules are named after the flax module tree (``pre_calc``,
 ``Conv2dBlock_0``, ``ResidualConv_0``, ...), so ``utils/convert.from_jax``
 maps weights by name. ``remat=True`` recomputes the pack, unpack, full
 Conv2dBlock and head sub-blocks in the backward with
-``torch.utils.checkpoint``.
+``torch.utils.checkpoint``. ``dtype`` is the compute dtype of every layer
+(``nn/layers.py``); the inverse depths come out in float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -39,16 +40,19 @@ from packnet_sfm_tpu_torch.ops.image import interpolate_image
 class ChannelConv3d(nn.Module):
     """3x3x3 conv over (channel-as-depth, H, W) emitting the folded layout:
     [B, Cp, H, W] -> [B, d*Cp, H, W], folded channel j*Cp + c. Parameters
-    ``weight`` [d, 1, 3, 3, 3] and ``bias`` [d], as ``nn.Conv3d(1, d, 3)``."""
+    ``weight`` [d, 1, 3, 3, 3] and ``bias`` [d], as ``nn.Conv3d(1, d, 3)``.
+    Computes in ``dtype``, or else the input's, as the JAX module does."""
 
-    def __init__(self, d: int):
+    def __init__(self, d: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(d, 1, 3, 3, 3))
         self.bias = nn.Parameter(torch.zeros(d))
         nn.init.xavier_uniform_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = channel_conv3d(x.permute(0, 2, 3, 1), self.weight, self.bias)
+        y = channel_conv3d(x.permute(0, 2, 3, 1), self.weight, self.bias,
+                           self.dtype or x.dtype)
         return y.permute(0, 3, 1, 2)
 
 
@@ -62,11 +66,11 @@ class PackLayerConv3d(nn.Module):
     """
 
     def __init__(self, features: int, kernel_size: int, r: int = 2, d: int = 8,
-                 fuse: bool = True, mode: str = "auto"):
+                 fuse: bool = True, mode: str = "auto", dtype=None):
         super().__init__()
-        self.r, self.fuse, self.mode = r, fuse, mode
-        self.conv = ChannelConv3d(d)
-        self.Conv2dBlock_0 = Conv2dBlock(features * r * r * d, features, kernel_size, 1)
+        self.r, self.fuse, self.mode, self.dtype = r, fuse, mode, dtype
+        self.conv = ChannelConv3d(d, dtype)
+        self.Conv2dBlock_0 = Conv2dBlock(features * r * r * d, features, kernel_size, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pixel_unshuffle(x, self.r)                      # [B, C*r*r, H/r, W/r]
@@ -74,7 +78,8 @@ class PackLayerConv3d(nn.Module):
         if not self.fuse:
             return block(self.conv(x))
         y = fused_pack_conv(x.permute(0, 2, 3, 1), self.conv.weight, self.conv.bias,
-                            block.conv.weight, block.conv.bias, mode=self.mode)
+                            block.conv.weight, block.conv.bias, mode=self.mode,
+                            dtype=self.dtype or x.dtype)
         return F.elu(block.norm(y.permute(0, 3, 1, 2)))
 
 
@@ -82,11 +87,12 @@ class UnpackLayerConv3d(nn.Module):
     """Unpack: 2D conv -> 3D conv -> depth-to-space upsample.
     [B, Cin, H, W] -> [B, features, rH, rW]."""
 
-    def __init__(self, cin: int, features: int, kernel_size: int, r: int = 2, d: int = 8):
+    def __init__(self, cin: int, features: int, kernel_size: int, r: int = 2, d: int = 8,
+                 dtype=None):
         super().__init__()
         self.r = r
-        self.Conv2dBlock_0 = Conv2dBlock(cin, features * r * r // d, kernel_size, 1)
-        self.conv = ChannelConv3d(d)
+        self.Conv2dBlock_0 = Conv2dBlock(cin, features * r * r // d, kernel_size, 1, dtype)
+        self.conv = ChannelConv3d(d, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.pixel_shuffle(self.conv(self.Conv2dBlock_0(x)), self.r)
@@ -110,10 +116,10 @@ class PackNetBase(nn.Module):
 
     def __init__(self, version: str = "A", dropout: Optional[float] = None,
                  out_channels: int = 1, remat: bool = False, fuse: bool = True,
-                 pack_mode: str = "auto"):
+                 pack_mode: str = "auto", dtype=None):
         super().__init__()
         check_dropout(dropout)
-        self.version, self.remat = version, remat
+        self.version, self.remat, self.dtype = version, remat, dtype
         v, no, ni, d = version, out_channels, self.ni, self.num_3d_feat
         n1, n2, n3, n4, n5 = self.channels
         pack_kernel = (5, 3, 3, 3, 3)
@@ -133,34 +139,43 @@ class PackNetBase(nn.Module):
             raise ValueError(f"Unknown PackNet version {v}")
 
         def pack(c, k):
-            return PackLayerConv3d(c, k, d=d, fuse=fuse, mode=pack_mode)
+            return PackLayerConv3d(c, k, d=d, fuse=fuse, mode=pack_mode, dtype=dtype)
 
-        self.pre_calc = Conv2dBlock(3, ni, 5, 1)
-        self.conv1 = Conv2dBlock(ni, n1, 7, 1)
+        def unpack(cin, c):
+            return UnpackLayerConv3d(cin, c, 3, d=d, dtype=dtype)
+
+        def block(cin, c, k):
+            return Conv2dBlock(cin, c, k, 1, dtype)
+
+        def residual(cin, c, n):
+            return ResidualBlock(cin, c, n, 1, dropout, dtype)
+
+        self.pre_calc = block(3, ni, 5)
+        self.conv1 = block(ni, n1, 7)
         self.pack1 = pack(n1, pack_kernel[0])
-        self.conv2 = ResidualBlock(n1, n2, self.num_blocks[0], 1, dropout)
+        self.conv2 = residual(n1, n2, self.num_blocks[0])
         self.pack2 = pack(n2, pack_kernel[1])
-        self.conv3 = ResidualBlock(n2, n3, self.num_blocks[1], 1, dropout)
+        self.conv3 = residual(n2, n3, self.num_blocks[1])
         self.pack3 = pack(n3, pack_kernel[2])
-        self.conv4 = ResidualBlock(n3, n4, self.num_blocks[2], 1, dropout)
+        self.conv4 = residual(n3, n4, self.num_blocks[2])
         self.pack4 = pack(n4, pack_kernel[3])
-        self.conv5 = ResidualBlock(n4, n5, self.num_blocks[3], 1, dropout)
+        self.conv5 = residual(n4, n5, self.num_blocks[3])
         self.pack5 = pack(n5, pack_kernel[4])
 
-        self.unpack5 = UnpackLayerConv3d(n5, n5o, 3, d=d)
-        self.iconv5 = Conv2dBlock(n5i, n5, 3, 1)
-        self.unpack4 = UnpackLayerConv3d(n5, n4o, 3, d=d)
-        self.iconv4 = Conv2dBlock(n4i, n4, 3, 1)
-        self.disp4 = InvDepthHead(n4, no)
-        self.unpack3 = UnpackLayerConv3d(n4, n3o, 3, d=d)
-        self.iconv3 = Conv2dBlock(n3i, n3, 3, 1)
-        self.disp3 = InvDepthHead(n3, no)
-        self.unpack2 = UnpackLayerConv3d(n3, n2o, 3, d=d)
-        self.iconv2 = Conv2dBlock(n2i, n2, 3, 1)
-        self.disp2 = InvDepthHead(n2, no)
-        self.unpack1 = UnpackLayerConv3d(n2, n1o, 3, d=d)
-        self.iconv1 = Conv2dBlock(n1i, n1, 3, 1)
-        self.disp1 = InvDepthHead(n1, no)
+        self.unpack5 = unpack(n5, n5o)
+        self.iconv5 = block(n5i, n5, 3)
+        self.unpack4 = unpack(n5, n4o)
+        self.iconv4 = block(n4i, n4, 3)
+        self.disp4 = InvDepthHead(n4, no, dtype=dtype)
+        self.unpack3 = unpack(n4, n3o)
+        self.iconv3 = block(n3i, n3, 3)
+        self.disp3 = InvDepthHead(n3, no, dtype=dtype)
+        self.unpack2 = unpack(n3, n2o)
+        self.iconv2 = block(n2i, n2, 3)
+        self.disp2 = InvDepthHead(n2, no, dtype=dtype)
+        self.unpack1 = unpack(n2, n1o)
+        self.iconv1 = block(n1i, n1, 3)
+        self.disp1 = InvDepthHead(n1, no, dtype=dtype)
 
     def init_weights(self, gen: torch.Generator) -> None:
         init_conv_weights(self, gen)
@@ -191,7 +206,9 @@ class PackNetBase(nn.Module):
         def merge(up, skip, udisp=None):
             parts = [up, skip] if concat else [up + skip]
             if udisp is not None:
-                parts.append(udisp)
+                # the next conv rounds the float32 inverse depth to the
+                # compute dtype; rounding it before the concat is the same
+                parts.append(udisp if self.dtype is None else udisp.to(self.dtype))
             return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
         iconv5 = run("iconv5", merge(run("unpack5", x5p), skip5))

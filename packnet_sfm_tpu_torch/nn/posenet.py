@@ -1,7 +1,9 @@
 """SfmLearner-style PoseNet (port of ``nn/posenet.py``): 7 stride-2
 conv + GroupNorm(16) + ReLU stages over concat(target, contexts), a 1x1
 head, the spatial mean in float32, then 0.01 * [B, n_ref, 6]
-([tx ty tz rx ry rz] per context frame).
+([tx ty tz rx ry rz] per context frame). ``dtype`` is the compute dtype
+of the convolutions and group norms (``nn/layers.py``); the pose comes out
+in float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -10,15 +12,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from packnet_sfm_tpu_torch.nn.layers import FastGroupNorm
+from packnet_sfm_tpu_torch.nn.layers import Conv2d, FastGroupNorm
 
 
 class _ConvGN(nn.Module):
-    def __init__(self, cin: int, features: int, kernel_size: int):
+    def __init__(self, cin: int, features: int, kernel_size: int, dtype=None):
         super().__init__()
-        self.conv = nn.Conv2d(cin, features, kernel_size, stride=2,
-                              padding=(kernel_size - 1) // 2)
-        self.norm = FastGroupNorm(features, num_groups=16, epsilon=1e-5)
+        self.conv = Conv2d(cin, features, kernel_size, stride=2,
+                           padding=(kernel_size - 1) // 2, compute_dtype=dtype)
+        self.norm = FastGroupNorm(features, num_groups=16, epsilon=1e-5, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.norm(self.conv(x)))
@@ -28,14 +30,14 @@ class PoseNet(nn.Module):
     CHANNELS = (16, 32, 64, 128, 256, 256, 256)
     KERNELS = (7, 5, 3, 3, 3, 3, 3)
 
-    def __init__(self, nb_ref_imgs: int = 2):
+    def __init__(self, nb_ref_imgs: int = 2, dtype=None):
         super().__init__()
         self.nb_ref_imgs = nb_ref_imgs
         cin = 3 * (1 + nb_ref_imgs)
         for i, (c, k) in enumerate(zip(self.CHANNELS, self.KERNELS)):
-            self.add_module(f"conv{i + 1}", _ConvGN(cin, c, k))
+            self.add_module(f"conv{i + 1}", _ConvGN(cin, c, k, dtype))
             cin = c
-        self.pose_pred = nn.Conv2d(cin, 6 * nb_ref_imgs, 1)
+        self.pose_pred = Conv2d(cin, 6 * nb_ref_imgs, 1, compute_dtype=dtype)
 
     def init_weights(self, gen: torch.Generator) -> None:
         """flax xavier-uniform kernels and zero biases."""

@@ -102,7 +102,10 @@ class ResNetEncoder(nn.Module):
                 kaiming_fan_out_(m.weight, gen)
 
     def forward(self, x: torch.Tensor) -> list:
-        x = (x - 0.45) / 0.225
+        # The ResNet family takes no compute dtype: a bfloat16 image meets
+        # float32 weights in float32, as flax promotes it (JAX normalizes it
+        # in bfloat16 first; the port upcasts it first).
+        x = (x.float() - 0.45) / 0.225
         f0 = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(f0, 3, stride=2, padding=1)
         feats = [f0]

@@ -35,6 +35,8 @@ SIGNATURES = {
     "warp": {
         "warp_fwd": [_P] * 3 + [_I] * 7 + [_P],
         "warp_bwd": [_P] * 5 + [_I] * 7 + [_P],
+        "warp_fwd_bf16": [_P] * 3 + [_I] * 7 + [_P],
+        "warp_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P],
         "launch_floor": [_P],
     },
 }
@@ -42,11 +44,12 @@ SIGNATURES = {
 _loaded: dict = {}
 
 
-def check_tensor(name: str, t: torch.Tensor, shape) -> None:
-    """Raise unless ``t`` is what the kernels take: a contiguous float32 CUDA
-    tensor of ``shape``."""
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 CUDA tensor, got "
+def check_tensor(name: str, t: torch.Tensor, shape, dtypes=(torch.float32,)) -> None:
+    """Raise unless ``t`` is what the kernels take: a contiguous CUDA tensor
+    of ``shape`` and one of ``dtypes`` (float32 unless said otherwise)."""
+    if not t.is_cuda or t.dtype not in dtypes or not t.is_contiguous():
+        kinds = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be a contiguous {kinds} CUDA tensor, got "
                          f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

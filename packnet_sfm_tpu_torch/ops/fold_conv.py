@@ -21,6 +21,11 @@ in PyTorch's layout (``w3`` [d, 1, 3, 3, 3] with the kernel's depth axis
 over channels, ``w2`` [Cout, d*Cp, k, k]), which is what the modules hold.
 The convolutions and einsums are PyTorch's; the permutes around them are
 views.
+
+``dtype`` is the compute dtype (None: the input's). The weights stay
+float32: the merged and border kernels are built from them in float32 and
+cast once where a convolution uses them, the convolutions run in ``dtype``
+and the border corrections are added in it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def channel_conv3d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def channel_conv3d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                   dtype=None) -> torch.Tensor:
     """3x3x3 conv over (channel-as-depth, H, W) emitting the folded layout.
 
     x: [B, H, W, Cp]; kernel: [d, 1, 3, 3, 3] (d, 1, kz, kh, kx); bias: [d].
@@ -52,21 +58,26 @@ def channel_conv3d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) ->
     """
     b, h, w, cp = x.shape
     d = kernel.shape[0]
-    y = F.conv3d(_nchw(x).unsqueeze(1), kernel, bias, padding=1)     # [B, d, Cp, H, W]
+    dt = dtype or x.dtype
+    y = F.conv3d(_nchw(x).unsqueeze(1).to(dt), kernel.to(dt), bias.to(dt),
+                 padding=1)                                          # [B, d, Cp, H, W]
     return _nhwc(y.reshape(b, d * cp, h, w))
 
 
-def conv2d_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def conv2d_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                dtype=None) -> torch.Tensor:
     """Raw 2D conv with zero 'same' padding: x [B, H, W, Cin], kernel
     [Cout, Cin, k, k] (no norm, no activation)."""
-    return _nhwc(F.conv2d(_nchw(x), kernel, bias, padding=kernel.shape[-1] // 2))
+    dt = dtype or x.dtype
+    return _nhwc(F.conv2d(_nchw(x).to(dt), kernel.to(dt), bias.to(dt),
+                          padding=kernel.shape[-1] // 2))
 
 
 def pack_conv_two_step(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
-                       w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+                       w2: torch.Tensor, b2: torch.Tensor, dtype=None) -> torch.Tensor:
     """Two-step pack conv in the order of the definition (3D conv, fold,
     2D conv)."""
-    return conv2d_same(channel_conv3d(x, w3, b3), w2, b2)
+    return conv2d_same(channel_conv3d(x, w3, b3, dtype), w2, b2, dtype)
 
 
 def _shift_cp(t: torch.Tensor, z: int) -> torch.Tensor:
@@ -199,23 +210,27 @@ def build_fused_kernels(w3: torch.Tensor, b3: torch.Tensor, w2: torch.Tensor,
     return out
 
 
-def apply_fused_kernels(x: torch.Tensor, kn: dict, k2: int, cout: int) -> torch.Tensor:
+def apply_fused_kernels(x: torch.Tensor, kn: dict, k2: int, cout: int,
+                        dtype=None) -> torch.Tensor:
     """Apply pre-built fused kernels (``build_fused_kernels``) to x
-    [B, H, W, Cp]. The border corrections are slice updates of the merged
-    conv's output through an NHWC view, in place: autograd records them."""
+    [B, H, W, Cp], in ``dtype`` (None: the input's). The border corrections
+    are slice updates of the merged conv's output through an NHWC view, in
+    place: autograd records them. The corners' ring values are summed in
+    float32 and cast, as in the JAX package."""
     b, h, w, cp = x.shape
     m = k2 // 2
-    xc = _nchw(x)
-    y = _nhwc(F.conv2d(xc, kn["kk"], kn["b_eff"], padding=m + 1))
+    dt = dtype or x.dtype
+    xc = _nchw(x).to(dt)
+    y = _nhwc(F.conv2d(xc, kn["kk"].to(dt), kn["b_eff"].to(dt), padding=m + 1))
 
     x_h = torch.cat([xc[:, :, :1], xc[:, :, -1:]], dim=1)        # [B,2Cp,1,W]
-    out_h = _nhwc(F.conv2d(x_h, kn["k_h"], padding=(0, m + 1), groups=2))
+    out_h = _nhwc(F.conv2d(x_h, kn["k_h"].to(dt), padding=(0, m + 1), groups=2))
     out_h = out_h.reshape(b, w, 2, m, cout)
     d_top = out_h[:, :, 0].permute(0, 2, 1, 3)                   # [B,m,W,cout]
     d_bot = out_h[:, :, 1].permute(0, 2, 1, 3).flip(1)           # t -> row H-1-t
 
     x_v = torch.cat([xc[:, :, :, :1], xc[:, :, :, -1:]], dim=1)  # [B,2Cp,H,1]
-    out_v = _nhwc(F.conv2d(x_v, kn["k_v"], padding=(m + 1, 0), groups=2))
+    out_v = _nhwc(F.conv2d(x_v, kn["k_v"].to(dt), padding=(m + 1, 0), groups=2))
     out_v = out_v.reshape(b, h, 2, m, cout)
     d_left = out_v[:, :, 0]                                      # [B,H,m,cout]
     d_right = out_v[:, :, 1].flip(2)
@@ -227,27 +242,28 @@ def apply_fused_kernels(x: torch.Tensor, kn: dict, k2: int, cout: int) -> torch.
 
     # Corner ring values were subtracted by both their row and their column
     # correction: add each back once.
-    px4 = torch.stack([x[:, 0, 0], x[:, 0, -1], x[:, -1, 0], x[:, -1, -1]])
+    px4 = torch.stack([x[:, 0, 0], x[:, 0, -1], x[:, -1, 0], x[:, -1, -1]]).float()
     vec4 = _ring_vec4(px4, kn["w3c4"], cp)                       # [4,B,dCp]
-    delta4 = torch.einsum("qstco,qbc->qbsto", kn["sel4"], vec4)
+    delta4 = torch.einsum("qstco,qbc->qbsto", kn["sel4"], vec4).to(dt)
     y[:, :m, :m] += delta4[0]
     y[:, :m, -m:] += delta4[1].flip(2)
     y[:, -m:, :m] += delta4[2].flip(1)
     y[:, -m:, -m:] += delta4[3].flip(1, 2)
 
-    y[:, :m] -= kn["bias_top"][None, :, None]
-    y[:, -m:] -= kn["bias_bot"].flip(0)[None, :, None]
-    y[:, :, :m] -= kn["bias_left"][None, None]
-    y[:, :, -m:] -= kn["bias_right"].flip(0)[None, None]
-    y[:, :m, :m] += kn["bc_tl"][None]
-    y[:, :m, -m:] += kn["bc_tr"].flip(1)[None]
-    y[:, -m:, :m] += kn["bc_bl"].flip(0)[None]
-    y[:, -m:, -m:] += kn["bc_br"].flip(0, 1)[None]
+    y[:, :m] -= kn["bias_top"][None, :, None].to(dt)
+    y[:, -m:] -= kn["bias_bot"].flip(0)[None, :, None].to(dt)
+    y[:, :, :m] -= kn["bias_left"][None, None].to(dt)
+    y[:, :, -m:] -= kn["bias_right"].flip(0)[None, None].to(dt)
+    y[:, :m, :m] += kn["bc_tl"][None].to(dt)
+    y[:, :m, -m:] += kn["bc_tr"].flip(1)[None].to(dt)
+    y[:, -m:, :m] += kn["bc_bl"].flip(0)[None].to(dt)
+    y[:, -m:, -m:] += kn["bc_br"].flip(0, 1)[None].to(dt)
     return y
 
 
 def fused_pack_conv(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
-                    w2: torch.Tensor, b2: torch.Tensor, mode: str = "auto") -> torch.Tensor:
+                    w2: torch.Tensor, b2: torch.Tensor, mode: str = "auto",
+                    dtype=None) -> torch.Tensor:
     """Exact pack conv as one conv over Cp channels plus the border fix.
 
     x: [B, H, W, Cp]; w3: [d, 1, 3, 3, 3]; w2: [Cout, d*Cp, k, k]. The output
@@ -263,7 +279,7 @@ def fused_pack_conv(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     cout, _, k2, _ = w2.shape
     m = k2 // 2
     if h < 2 * m + 2 or w < 2 * m + 2:
-        return pack_conv_two_step(x, w3, b3, w2, b2)
+        return pack_conv_two_step(x, w3, b3, w2, b2, dtype)
     if mode == "two_step" or (mode == "auto" and b * h * w < _FUSE_MIN_POSITIONS):
-        return pack_conv_two_step(x, w3, b3, w2, b2)
-    return apply_fused_kernels(x, build_fused_kernels(w3, b3, w2, b2, cp), k2, cout)
+        return pack_conv_two_step(x, w3, b3, w2, b2, dtype)
+    return apply_fused_kernels(x, build_fused_kernels(w3, b3, w2, b2, cp), k2, cout, dtype)

@@ -67,22 +67,43 @@ def _resize_nearest(image: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return image
 
 
+def _source_positions(size_in: int, size_out: int, dtype, device) -> torch.Tensor:
+    """linspace(0, size_in - 1, size_out) in ``dtype``, as the JAX package's
+    ``jnp.linspace(..., dtype=image.dtype)`` gives it. In float32 that is
+    ``torch.linspace``; in a narrower dtype jnp computes step = iota / div
+    and stop * step in that dtype, rounding the iota, div (383 is 384 in
+    bfloat16) and both results, which ``torch.linspace`` does not."""
+    if dtype == torch.float32 or size_out < 2:
+        return torch.linspace(0.0, size_in - 1.0, size_out, dtype=dtype, device=device)
+    div = size_out - 1
+    iota = torch.arange(div, dtype=torch.float32, device=device).to(dtype)
+    stop = torch.tensor(size_in - 1.0, dtype=dtype, device=device)
+    return torch.cat([stop * (iota / torch.tensor(float(div), dtype=dtype, device=device)),
+                      stop[None]])
+
+
 def _resize_bilinear_align_corners(image: torch.Tensor, h: int, w: int) -> torch.Tensor:
     _, ih, iw, _ = image.shape
-    ys = torch.linspace(0.0, ih - 1.0, h, dtype=image.dtype, device=image.device)
-    xs = torch.linspace(0.0, iw - 1.0, w, dtype=image.dtype, device=image.device)
+    ys = _source_positions(ih, h, image.dtype, image.device)
+    xs = _source_positions(iw, w, image.dtype, image.device)
     y0 = torch.floor(ys).clamp(0, ih - 1)
     x0 = torch.floor(xs).clamp(0, iw - 1)
     y1 = (y0 + 1).clamp(0, ih - 1)
     x1 = (x0 + 1).clamp(0, iw - 1)
     wy = (ys - y0)[None, :, None, None]
     wx = (xs - x0)[None, None, :, None]
+
+    def index(v, n):
+        # a narrow dtype may round the clamp's bound past the edge (639 is
+        # 640 in bfloat16); JAX's gather clamps the index, so this does too
+        return v.long().clamp_(0, n - 1)
+
     # Separable gather: rows then columns.
-    top = image[:, y0.long()]
-    bot = image[:, y1.long()]
+    top = image[:, index(y0, ih)]
+    bot = image[:, index(y1, ih)]
     rows = top * (1 - wy) + bot * wy
-    left = rows[:, :, x0.long()]
-    right = rows[:, :, x1.long()]
+    left = rows[:, :, index(x0, iw)]
+    right = rows[:, :, index(x1, iw)]
     return left * (1 - wx) + right * wx
 
 

@@ -144,12 +144,14 @@ def softargmax_coords(direction: torch.Tensor, rays: torch.Tensor,
     """Expected window coords for NRS projection.
 
     direction, rays: [B, 3, h, w] (unit vectors, channels leading). Returns
-    (ex, ey): [B, h, w] absolute pixel coords. CUDA tensors go through the
-    kernels, CPU tensors through ``softargmax_coords_plain``.
+    (ex, ey): [B, h, w] absolute pixel coords, float32. CUDA tensors go
+    through the kernels, CPU tensors through ``softargmax_coords_plain``.
+    Both compute in float32 on any input, as the JAX kernels do (no
+    bfloat16 variant); the gradients come back in the inputs' dtypes.
     """
     temperature = _check_temperature(temperature)
     if direction.is_cuda:
-        return _SoftargmaxCuda.apply(direction.contiguous(), rays.contiguous(),
+        return _SoftargmaxCuda.apply(direction.float().contiguous(), rays.float().contiguous(),
                                      temperature, patch)
     if direction.device.type == "cpu":
         return softargmax_coords_plain(direction, rays, temperature, patch)

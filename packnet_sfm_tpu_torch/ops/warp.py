@@ -14,11 +14,18 @@ tap's index is clamped into the image).
   lerp), differentiated by autograd. The CPU tests and ``chip_smoke.py``
   hold the kernels to it.
 - ``launch_counts``: launches of each kernel, counted where the wrapper
-  launches it, so a run can show that its path went through the kernels.
+  launches it, so a run can show that its path went through the kernels;
+  ``bf16_launch_counts`` those of the bfloat16-image variants
+  (``warp_fwd_bf16``/``warp_bwd_bf16``), which ``launch_counts`` leaves
+  out.
 
-The kernels compute in float32. On both devices the result comes back in
-the dtype that the image's and the coordinates' promote to, and the gradient
-with respect to the coordinates in the coordinates' dtype.
+The kernels compute in float32. A bfloat16 image at float32 coordinates
+(what the bfloat16 policy's losses warp) goes to the bfloat16-image variants
+as it is, with no float32 copy; every other pair of dtypes is cast to
+float32 first. On both devices the result comes back in the dtype that the
+image's and the coordinates' promote to, and the gradient with respect to
+the coordinates in the coordinates' dtype. The variants give no gradient to
+the image: asked for one, the backward raises.
 """
 
 from __future__ import annotations
@@ -27,13 +34,15 @@ import torch
 from torch.autograd.function import once_differentiable
 
 launch_counts = {"warp_fwd": 0, "warp_bwd": 0}
+bf16_launch_counts = {"warp_fwd_bf16": 0, "warp_bwd_bf16": 0}
 
 PADDING_MODES = {"zeros": 0, "border": 1}
 
 
 def reset_launch_counts() -> None:
-    for key in launch_counts:
-        launch_counts[key] = 0
+    for counts in (launch_counts, bf16_launch_counts):
+        for key in counts:
+            counts[key] = 0
 
 
 def _padding_code(padding_mode: str) -> int:
@@ -51,52 +60,67 @@ def _check_shapes(image: torch.Tensor, coords: torch.Tensor) -> None:
         raise ValueError(f"image {tuple(image.shape)} has an empty dimension")
 
 
+IMAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel(name: str, image: torch.Tensor) -> str:
+    """The launcher of ``name`` for the image's dtype."""
+    return name + "_bf16" if image.dtype == torch.bfloat16 else name
+
+
 def warp_fwd_cuda(image: torch.Tensor, coords: torch.Tensor,
                   padding_mode: str = "zeros") -> torch.Tensor:
-    """Forward kernel: image [B,H,W,C], coords [B,H',W',2] -> [B,H',W',C]."""
+    """Forward kernel: image [B,H,W,C] (float32 or bfloat16), coords
+    [B,H',W',2] (float32) -> [B,H',W',C] (float32)."""
     from packnet_sfm_tpu_torch.ops import _cuda
 
     padding = _padding_code(padding_mode)
     _check_shapes(image, coords)
     b, h, w, c = image.shape
     _, ho, wo, _ = coords.shape
-    _cuda.check_tensor("image", image, (b, h, w, c))
+    _cuda.check_tensor("image", image, (b, h, w, c), IMAGE_DTYPES)
     _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
-    lib = _cuda.load("warp")
+    name = _kernel("warp_fwd", image)
+    launcher = getattr(_cuda.load("warp"), name)
     out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
     with torch.cuda.device(image.device):
-        err = lib.warp_fwd(image.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                           b, h, w, c, ho, wo, padding, _cuda.stream(image))
+        err = launcher(image.data_ptr(), coords.data_ptr(), out.data_ptr(),
+                       b, h, w, c, ho, wo, padding, _cuda.stream(image))
     if err != 0:
-        raise RuntimeError(f"warp_fwd launch failed: cudaError {err}")
-    launch_counts["warp_fwd"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    (bf16_launch_counts if name.endswith("_bf16") else launch_counts)[name] += 1
     return out
 
 
 def warp_bwd_cuda(image: torch.Tensor, coords: torch.Tensor, grad_out: torch.Tensor,
                   padding_mode: str = "zeros", need_image_grad: bool = False):
     """Backward kernel: returns (d image or None, d coords). d image is
-    summed with atomics into a zeroed buffer, only when asked for."""
+    summed with atomics into a zeroed buffer, only when asked for, and only
+    for a float32 image: for a bfloat16 one it raises."""
     from packnet_sfm_tpu_torch.ops import _cuda
 
     padding = _padding_code(padding_mode)
     _check_shapes(image, coords)
     b, h, w, c = image.shape
     _, ho, wo, _ = coords.shape
-    _cuda.check_tensor("image", image, (b, h, w, c))
+    _cuda.check_tensor("image", image, (b, h, w, c), IMAGE_DTYPES)
     _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
     _cuda.check_tensor("grad_out", grad_out, (b, ho, wo, c))
-    lib = _cuda.load("warp")
+    name = _kernel("warp_bwd", image)
+    if need_image_grad and image.dtype != torch.float32:
+        raise ValueError(f"{name} gives no gradient to a {image.dtype} image; "
+                         "warp a float32 image where it needs one")
+    launcher = getattr(_cuda.load("warp"), name)
     d_coords = torch.empty_like(coords)
     d_image = torch.zeros_like(image) if need_image_grad else None
+    image_grad = [d_image.data_ptr() if need_image_grad else None]
     with torch.cuda.device(image.device):
-        err = lib.warp_bwd(image.data_ptr(), coords.data_ptr(), grad_out.data_ptr(),
-                           d_coords.data_ptr(),
-                           d_image.data_ptr() if need_image_grad else None,
-                           b, h, w, c, ho, wo, padding, _cuda.stream(image))
+        err = launcher(image.data_ptr(), coords.data_ptr(), grad_out.data_ptr(),
+                       d_coords.data_ptr(), *(image_grad if name == "warp_bwd" else []),
+                       b, h, w, c, ho, wo, padding, _cuda.stream(image))
     if err != 0:
-        raise RuntimeError(f"warp_bwd launch failed: cudaError {err}")
-    launch_counts["warp_bwd"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    (bf16_launch_counts if name.endswith("_bf16") else launch_counts)[name] += 1
     return d_image, d_coords
 
 
@@ -124,15 +148,21 @@ def grid_sample(image: torch.Tensor, coords: torch.Tensor,
 
     ``coords[..., 0]`` is x and ``coords[..., 1]`` is y. CUDA tensors go
     through the kernels (in float32, cast back to the inputs' promoted dtype
-    outside the autograd function), CPU tensors through
+    outside the autograd function; a bfloat16 image at float32 coordinates
+    through the bfloat16-image variants, uncast), CPU tensors through
     ``grid_sample_plain``.
     """
     _padding_code(padding_mode)
     _check_shapes(image, coords)
     if image.is_cuda and coords.is_cuda:
-        out = _WarpCuda.apply(image.float().contiguous(), coords.float().contiguous(),
-                              padding_mode)
-        return out.to(torch.promote_types(image.dtype, coords.dtype))
+        out_dtype = torch.promote_types(image.dtype, coords.dtype)
+        if not (image.dtype == torch.bfloat16 and coords.dtype == torch.float32):
+            image = image.float()
+        elif image.requires_grad and torch.is_grad_enabled():
+            raise ValueError("the bfloat16-image warp gives no gradient to the image; "
+                             "detach it (grid_sample_data) or warp it in float32")
+        out = _WarpCuda.apply(image.contiguous(), coords.float().contiguous(), padding_mode)
+        return out.to(out_dtype)
     if image.device.type == "cpu" and coords.device.type == "cpu":
         return grid_sample_plain(image, coords, padding_mode)
     raise ValueError(f"grid_sample has no path for devices {image.device} and {coords.device}")

@@ -1,10 +1,13 @@
 """Where the time of a train or eval step goes on the card.
 
     python -m packnet_sfm_tpu_torch.tools.profile_step [--config kitti|omnicam]
-        [--eval] [--steps 5] [--out FILE]
+        [--eval] [--dtype config|float32|bfloat16] [--steps 5] [--out FILE]
 
 Builds one of the two ported training configurations as chip_smoke.py does
-(float32, TF32 off, synthetic samples, random weights from seed 0):
+(synthetic samples, random weights from seed 0, TF32 off for float32 work),
+computing in the config's ``arch.dtype`` (bfloat16 for both) unless
+``--dtype`` says otherwise; ``--dtype float32`` gives what the profiles
+before the bfloat16 policy measured:
 - ``kitti``: configs/train_kitti.yaml, SelfSupModel, PackNet01-1A + PoseNet,
   192x640, batch 4, device jitter and the training flip on;
 - ``omnicam``: configs/train_omnicam.yaml, GenericSelfSupModel,
@@ -103,9 +106,9 @@ def _region_of(evt):
     return None
 
 
-def build_eval(device):
-    """run(i) of the eval step of the KITTI config's model (float32) at B = 1
-    against ground truth at 375x1242."""
+def build_eval(device, dtype: str):
+    """run(i) of the eval step of the KITTI config's model at B = 1 against
+    ground truth at 375x1242."""
     from packnet_sfm_tpu_torch.core.config import KITTI, config_from_dict, parse_train_config
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
     from packnet_sfm_tpu_torch.engine.factory import setup_metrics_config, setup_model
@@ -119,7 +122,8 @@ def build_eval(device):
                              depth_density=EVAL_GT_DENSITY, back_context=0,
                              forward_context=0)[0]["depth"]
     batch = {"rgb": rgb[None], "depth": gt[None]}
-    step = make_eval_step(setup_model(cfg.model, device=device, seed=0),
+    step = make_eval_step(setup_model(cfg.model, device=device, seed=0,
+                                      dtype=model_dtype(cfg, dtype)),
                           setup_metrics_config(cfg))
 
     def run(i):
@@ -127,7 +131,15 @@ def build_eval(device):
     return run
 
 
-def build(config: str, n: int, device):
+def model_dtype(cfg, dtype: str):
+    """The compute dtype to build the model with (None: float32)."""
+    from packnet_sfm_tpu_torch.engine.factory import compute_dtype
+
+    return {"config": compute_dtype(cfg), "float32": None,
+            "bfloat16": torch.bfloat16}[dtype]
+
+
+def build(config: str, n: int, device, dtype: str):
     """run(i) of train step i of one ported training configuration."""
     from packnet_sfm_tpu_torch.core.config import (
         KITTI, OMNICAM, config_from_dict, parse_train_config)
@@ -153,10 +165,12 @@ def build(config: str, n: int, device):
             batch = collate_train_batch(samples)
             del batch["intrinsics"]
             batches.append(batch)
-    model = setup_model(cfg.model, device=device, seed=0)
+    dt = model_dtype(cfg, dtype)
+    model = setup_model(cfg.model, device=device, seed=0, dtype=dt)
     optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, n)
     step = make_train_step(model, optimizer, scheduler,
-                           generator=torch.Generator().manual_seed(0))
+                           generator=torch.Generator().manual_seed(0),
+                           compute_dtype=dt or torch.float32)
     progress = 0.0 if config == "kitti" else 0.5
     acc = zero_metrics(device)
 
@@ -169,6 +183,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("kitti", "omnicam"), default="omnicam")
     ap.add_argument("--eval", action="store_true", help="profile the eval step (kitti)")
+    ap.add_argument("--dtype", choices=("config", "float32", "bfloat16"), default="config",
+                    help="compute dtype: the config's arch.dtype, or this one")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="", help="write the JSON summary here too")
     args = ap.parse_args()
@@ -178,7 +194,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    run = build_eval(device) if args.eval else build(args.config, args.steps + 3, device)
+    run = (build_eval(device, args.dtype) if args.eval
+           else build(args.config, args.steps + 3, device, args.dtype))
     for i in range(3):
         run(i)
     torch.cuda.synchronize()
@@ -230,7 +247,7 @@ def main():
 
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:30]
     summary = {
-        "config": args.config + (" eval" if args.eval else ""),
+        "config": args.config + (" eval" if args.eval else "") + f" ({args.dtype} dtype)",
         "device": torch.cuda.get_device_name(0),
         "steps": steps,
         "wall_ms_per_step": wall,

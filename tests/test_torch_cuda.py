@@ -43,6 +43,13 @@ quantization), as the CPU's kernel is on a contiguous input
 (tests/test_torch_networks.py); the CPU's channels-last kernel is not
 (ROADMAP.md §3 (c)).
 
+The bfloat16-image warp variants against the plain version on the widened
+image (the same function: a bfloat16 tap widens to float32 exactly), on
+the float32 cases above, both paddings: the same tolerances; they refuse
+a gradient for the image. FastGroupNorm in bfloat16 compute on the card
+against the CPU on the same bfloat16 input bits: within one bfloat16
+spacing of the output (both compute float32 statistics and round once).
+
 Two trainer steps (``Trainer.train_epoch`` over a 2-step epoch of the
 PackNetSlim overfit recipe at batch 2, device jitter and the training flip
 on) on the card against the CPU from the same seed: the epoch's mean loss
@@ -187,6 +194,62 @@ def test_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
     cd = coords.clone().requires_grad_()
     (warp.grid_sample_data(ik, cd, padding_mode) * grad).sum().backward()
     assert torch.equal(cd.grad, ck.grad)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("shape,out_hw", WARP_CASES)
+def test_bf16_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
+    image, coords, grad = _warp_inputs(shape, out_hw, device)
+    image = image.bfloat16()
+    warp.reset_launch_counts()
+    ck = coords.clone().requires_grad_()
+    out = warp.grid_sample(image, ck, padding_mode)
+    (out * grad).sum().backward()
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and ck.grad.dtype == torch.float32
+    assert warp.bf16_launch_counts == {"warp_fwd_bf16": 1, "warp_bwd_bf16": 1}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0}
+    cp = coords.clone().requires_grad_()
+    out_p = warp.grid_sample_plain(image.float(), cp, padding_mode)
+    (out_p * grad).sum().backward()
+    assert (out - out_p).abs().max().item() <= 1e-5
+    assert torch.isfinite(ck.grad).all()
+    assert (ck.grad - cp.grad).abs().max().item() <= 1e-4 * cp.grad.abs().max().item()
+    # the same function of the widened image as the float32 kernel
+    assert (out - warp.warp_fwd_cuda(image.float(), coords, padding_mode)).abs().max() <= 1e-6
+
+
+def test_bf16_warp_refuses_an_image_gradient(device):
+    image = torch.rand(2, 6, 8, 3, device=device).bfloat16()
+    coords = torch.rand(2, 6, 8, 2, device=device)
+    grad = torch.rand(2, 6, 8, 3, device=device)
+    with pytest.raises(ValueError, match="no gradient"):
+        warp.warp_bwd_cuda(image, coords, grad, need_image_grad=True)
+    with pytest.raises(ValueError, match="no gradient"):
+        warp.grid_sample(image.requires_grad_(), coords)
+    _, d_coords = warp.warp_bwd_cuda(image.detach(), coords, grad)
+    assert torch.isfinite(d_coords).all()
+    with pytest.raises(ValueError):
+        warp.warp_fwd_cuda(image.detach().half(), coords)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_bf16_group_norm_on_the_card_matches_the_cpu(device, layout):
+    from packnet_sfm_tpu_torch.nn.layers import FastGroupNorm
+
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn((2, 64, 24, 40), generator=gen) * 3 + 1).bfloat16()
+    if layout == "channels_last":
+        x = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)
+    norm = FastGroupNorm(64, dtype=torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(torch.rand(64, generator=gen) + 0.5)
+        norm.bias.copy_(torch.randn(64, generator=gen))
+        want = norm(x).float()
+        got = norm.to(device)(x.to(device)).float().cpu()
+    assert got.dtype == want.dtype
+    spacing = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=2 ** -120))) - 7)
+    assert ((got - want).abs() <= spacing).all()
 
 
 def test_warp_wrapper_checks(device):

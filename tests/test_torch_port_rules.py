@@ -14,8 +14,8 @@
   layout and conv1 widening, the console helpers; the train transform in
   tests/test_torch_augmentations.py);
 - what is not ported yet refuses with a pointer to ROADMAP.md (datasets
-  other than Synthetic, ResNets other than 18, bfloat16, multi-process
-  training, the S3 sync), and a missing Pillow or matplotlib raises
+  other than Synthetic, ResNets other than 18, multi-process training, the
+  S3 sync; bfloat16 is accepted), and a missing Pillow or matplotlib raises
   ImportError only where one is used;
 - the package calls no library warp: no source of it mentions
   ``F.grid_sample``;
@@ -461,10 +461,9 @@ def test_unported_eval_pieces_refuse_naming_the_roadmap(tmp_path):
             split.dataset = [name]
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 setup_dataset(split, mode, cfg.datasets.augmentation)
-    bad = cfg.clone()
-    bad.arch.dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(bad, device="cpu")
+    half = cfg.clone()                       # bfloat16 is ported: accepted
+    half.arch.dtype = "bfloat16"
+    assert Trainer(half, device="cpu").model.depth_net.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
         train(cfg.to_dict(), distributed=True, device="cpu")
     with pytest.raises(NotImplementedError, match="S3"):

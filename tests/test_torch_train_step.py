@@ -11,21 +11,30 @@ window of patch 20), progress 0.3 (T = 9.7e-5), batch 1:
   and over the 3 steps, and the running statistics after them.
 
 Tolerances, and what was measured on a CPU (float32 on both sides):
-- loss and metrics rtol 1e-4 (measured 1.4e-6); gradient cosine >= 0.999
-  (0.99985); running statistics of one forward rtol 1e-4 (3e-6 of scale).
+- loss and metrics rtol 1e-4 (measured 1.6e-6); gradient cosine >= 0.998
+  (0.99867); running statistics of one forward rtol 1e-4 (3e-6 of scale).
+  The gradient's own floor: the port against itself from weights perturbed
+  by a relative 1e-7 gives cosines of 0.99851-0.99999 over 16 draws (median
+  0.99873), so 0.998 sits under that floor and JAX's 0.99867 inside it.
+  (Before the group norm got a contiguous input on the CPU, the port's
+  channels-last kernel and JAX both summed E[x^2] - E[x]^2 in one pass and
+  agreed to 0.99985; ROADMAP.md §3 (c).)
 - The trajectory is chaotic at T ~ 1e-4: a weight change at rounding level
   moves some soft-argmax correspondences by whole pixels, and Adam's first
   steps (about sign(g) * lr on every weight) flip the updates of the weights
   whose gradient is that small. Two runs of the PORT whose starting weights
-  differ by a relative 1e-7 diverge as follows: losses of steps 1-3 differ by
-  1.1e-6, 1.1e-4, 2.2e-2 relative, update cosines 0.992 after step 1 and
-  0.813 after 3. The port against JAX measured 2.7e-7, 2.8e-5, 7.2e-3 and
-  0.990, 0.806, and running statistics within 5.8% of each tensor's scale.
-  The bounds sit above that floor: per-step loss rtol 1e-4, 1e-3, 5e-2;
-  update cosines >= 0.98 (step 1) and >= 0.7 (3 steps); running statistics
-  after 3 steps within 15% of scale. A wrong gradient term fails the
-  gradient cosine and the step-1 bounds by far. ``PYTHONPATH=. python
-  tests/test_torch_train_step.py`` prints all these figures.
+  differ by a relative 1e-7 diverge as follows over 8 draws: losses of
+  steps 1-3 differ by up to 1.4e-6, 1.5e-3, 1.3e-2 relative, update cosines
+  0.9700-0.9730 after step 1 and 0.715-0.752 after 3. The port against JAX
+  measured 5.5e-7, 6.9e-4, 1.3e-2 and 0.972, 0.756, and running statistics
+  within 6.2% of each tensor's scale. The bounds sit under that floor:
+  per-step loss rtol 1e-4, 1e-3, 5e-2; update cosines >= 0.96 (step 1) and
+  >= 0.7 (3 steps); running statistics after 3 steps within 15% of scale.
+  (With the CPU's channels-last group norm the port's own floor was
+  0.992-0.995 after step 1 and JAX's 0.990, under a bound of 0.98.) A wrong
+  gradient term fails the gradient cosine and the step-1 bounds by far.
+  ``PYTHONPATH=. python tests/test_torch_train_step.py`` prints all these
+  figures.
 - Images are smooth (low-res noise upsampled x8, as tests/test_lockstep.py);
   on fine per-pixel texture the gradient cosine drops to ~0.997, because
   bilinear sampling's coordinate gradient jumps at integer positions and the
@@ -190,7 +199,7 @@ def test_model_loss_matches_jax(runs):
 
 def test_model_loss_gradients_and_stats_match_jax(runs):
     keys = sorted(runs["params0"])
-    assert _cos(_flat(runs["t_grads0"], keys), _flat(runs["j_grads0"], keys)) >= 0.999
+    assert _cos(_flat(runs["t_grads0"], keys), _flat(runs["j_grads0"], keys)) >= 0.998
     assert runs["j_stats0"]
     for key, value in runs["j_stats0"].items():
         np.testing.assert_allclose(runs["t_stats0"][key].numpy(), value.numpy(),
@@ -206,7 +215,7 @@ def test_adam_trajectory_matches_jax(runs):
     j1, jn = _flat(runs["j_params"][0], keys), _flat(runs["j_params"][-1], keys)
     t1, tn = _flat(runs["t_params"][0], keys), _flat(runs["t_params"][-1], keys)
     assert np.linalg.norm(t1 - p0) > 0
-    assert _cos(t1 - p0, j1 - p0) >= 0.98
+    assert _cos(t1 - p0, j1 - p0) >= 0.96
     assert _cos(tn - p0, jn - p0) >= 0.7
     # the ray-surface decoder learns at progress 0.3 (blend coefficient > 0)
     ray_keys = [k for k in keys if k.startswith("depth_net.ray_decoder.")]
@@ -266,12 +275,25 @@ if __name__ == "__main__":
     print("JAX vs port: stats after the steps, max err / scale", max(
         np.abs(r["t_params"][-1][k].numpy() - v.numpy()).max() / np.abs(v.numpy()).max()
         for k, v in r["j_stats"].items()))
-    model = setup_model(config_from_dict(OMNICAM).model, device="cpu")
-    model.load_state_dict(r["state0"])
-    gen = torch.Generator().manual_seed(0)
-    with torch.no_grad():
-        for prm in model.parameters():
-            prm.mul_(1 + 1e-7 * torch.randn(prm.shape, generator=gen))
+    def perturbed(seed):
+        model = setup_model(config_from_dict(OMNICAM).model, device="cpu")
+        model.load_state_dict(r["state0"])
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.mul_(1 + 1e-7 * torch.randn(prm.shape, generator=gen))
+        return model
+
+    def gradients(model):
+        loss, _ = model_loss(model, prepare_train_batch(_batches()[0], "cpu"), progress=PROGRESS)
+        loss.backward()
+        return _flat({k: torch.zeros_like(p) if p.grad is None else p.grad
+                      for k, p in model.named_parameters()}, keys)
+
+    g0 = _flat(r["t_grads0"], keys)
+    print("port vs perturbed port: gradient cosines",
+          [_cos(g0, gradients(perturbed(seed))) for seed in range(16)])
+    model = perturbed(0)
     q0 = _flat(model.state_dict(), keys)
     q_losses, q_params, _ = _port_steps(model, _batches())
     print("port vs perturbed port: step loss rel", np.abs(q_losses - r["t_losses"]) / r["t_losses"])
