@@ -68,6 +68,27 @@ Phases, each of which fails the run:
    flip generator); a preemption flagged after step 1 writes
    preempt_epoch=00.ckpt, whose resume redoes epoch 0; then the train
    loader alone over an epoch, and the bare step on its batches.
+7. Real-format data: trees written under build/chip_smoke_data/ in the
+   releases' layouts and at their resolutions (see the constants below):
+   a KITTI raw tree, a folder of numbered frames and a DGP scene. Which
+   image decoder runs (native, or Pillow with the build's error), and the
+   ms to decode a 375x1242 PNG and a 1936x1216 JPEG each way. Then
+   ``cli.train`` (build_trainer and fit) on configs/train_kitti.yaml as
+   written (bfloat16, PackNet01-1A + PoseNet, 192x640, batch 4, two
+   contexts), its splits pointed at the tree and its epoch cut to
+   KITTI_TRAIN frames a drive (repeat [2]: 12 steps), validated at native
+   ground truth; ``cli.eval.evaluate`` with configs/eval_kitti.yaml (its
+   save folder emptied, so that it writes nothing) on that checkpoint at
+   B = 4, in ground-truth shape buckets that must be the tree's three
+   sizes, against B = 1 (TOL_PROTOCOL); ``cli.infer`` on a 375x1242
+   drive. configs/train_omnicam.yaml on the folder (its validation split
+   dropped: it has no depth, and a fit validates each epoch). configs/
+   train_ddad.yaml on the scene as written (repeat [5]: 10 steps), then
+   with two cameras and repeat [1]: 2 steps of 4 images, the batch fold on
+   the card. Each fit reads the launch counters around it and fails on
+   counts other than the config's per step, a non-finite loss or table;
+   each single-camera config's train loader then runs alone over an epoch,
+   and the bare step over that epoch's batches.
 
 Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
 it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
@@ -75,7 +96,8 @@ float32 work; bfloat16 convolutions use the tensor cores regardless. Needs
 a CUDA device; exits non-zero, printing no result, without one.
 The last line is {"ok": true, "device": {...}}; before the kernels' line,
 one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
-{"eval": {...}} phase 5's numbers and one line {"train": {...}} phase 6's.
+{"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's and
+one line {"data": {...}} phase 7's.
 The line before the last lists each kernel with its dtype, its launches on
 its train path's steps (the bfloat16 steps; the float32-image warp's on the
 float32 flagship steps), error against the plain version, time, plain
@@ -84,6 +106,9 @@ call's time. A bound is the largest of the bytes' time, the operations'
 time and the time of an empty kernel's launch, measured here.
 """
 
+import contextlib
+import gc
+import io
 import json
 import pathlib
 import statistics
@@ -1392,6 +1417,424 @@ def train_phase(device):
                 seconds=time.perf_counter() - t_phase)
 
 
+# Phase 7: trees in the releases' own layouts and at their resolutions,
+# written under build/chip_smoke_data/. Frames are a smooth scene panning a
+# few pixels a frame, with mild noise (sigma 2 levels), so that they
+# compress and decode like photographs. KITTI raw, the layout of the JAX
+# tests' fixture (tests/test_datasets.py): drives at eigen_test's three
+# native sizes (two 375x1242 drives, one 376x1241, one 370x1226), each under
+# its date's calibration, PNG frames, OXTS packets and velodyne depth npz
+# with VELODYNE_DENSITY of the pixels valid. The train split takes frames
+# 1..KITTI_TRAIN of each drive (both neighbours exist), the two validation
+# splits frames 10-11 and 14-15, the test split every frame.
+KITTI_DRIVES = (("2011_09_26", 1, (375, 1242)), ("2011_09_26", 2, (375, 1242)),
+                ("2011_10_03", 27, (376, 1241)), ("2011_09_30", 16, (370, 1226)))
+KITTI_CALIB = {"2011_09_26": (721.5377, 609.5593, 172.854),
+               "2011_10_03": (718.856, 607.1928, 185.2157),
+               "2011_09_30": (707.0912, 601.8873, 183.1104)}
+KITTI_FRAMES, KITTI_TRAIN = 20, 6
+VELODYNE_DENSITY = 0.04
+# The image folder: numbered JPEG frames at a source size above the
+# config's 384x384 (the omnicam release's own size is not in the repository).
+OMNICAM_SIZE, OMNICAM_FRAMES = (768, 768), 12
+# One DGP scene in the JAX tests' schema (tests/test_ddad.py) at DDAD's
+# 1936x1216, JPEG frames, channels named as train_ddad.yaml names them
+# ('camera_01', a second camera 'camera_05', 'lidar'), a cloud of
+# DDAD_POINTS points a sample.
+DDAD_SIZE, DDAD_FRAMES, DDAD_POINTS = (1216, 1936), 6, 100_000
+DECODE_REPS = 10
+# Per train step, as the configs run (bfloat16): the flagship's warp at 4
+# scales, NRS's one scale with its two projections.
+FLAGSHIP_LAUNCHES = {"warp_fwd_bf16": KITTI_SCALES, "warp_bwd_bf16": KITTI_SCALES}
+NRS_LAUNCHES = {"softargmax_fwd": 2, "softargmax_bwd": 2, "warp_fwd_bf16": 2,
+                "warp_bwd_bf16": 2}
+
+
+def photo_frames(rng, n, h, w, shift=3):
+    """``n`` uint8 frames [h, w, 3] of one smooth scene, panning ``shift`` px
+    a frame, with mild noise."""
+    import numpy as np
+    from PIL import Image
+
+    wide = w + shift * n
+
+    def octave(cell, lo, hi):
+        grid = rng.integers(lo, hi, size=(h // cell + 2, wide // cell + 2, 3), dtype=np.uint8)
+        return np.asarray(Image.fromarray(grid).resize((wide, h), Image.BICUBIC), np.float32)
+    scene = octave(48, 30, 225) + octave(8, 108, 148) - 128
+    for i in range(n):
+        frame = scene[:, shift * i:shift * i + w] + rng.normal(0, 2, size=(h, w, 3))
+        yield np.clip(frame, 0, 255).astype(np.uint8)
+
+
+def write_images(jobs):
+    """Write (path, uint8 array) pairs in threads (PNG or JPEG by suffix)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def write(job):
+        path, arr = job
+        path.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(arr).save(path, quality=90)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def write_kitti_tree(root):
+    """The KITTI raw tree of phase 7; returns its split files by name."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    R = ("9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 "
+         "-4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01")
+    splits = {"train": [], "val": [], "test_a": [], "test": []}
+    jobs = []
+    for date, num, (h, w) in KITTI_DRIVES:
+        fx, cx, cy = KITTI_CALIB[date]
+        P = f"{fx} 0 {cx} 0 0 {fx} {cy} 0 0 0 1 0"
+        (root / date).mkdir(parents=True, exist_ok=True)
+        (root / date / "calib_cam_to_cam.txt").write_text(
+            f"P_rect_02: {P}\nP_rect_03: {P}\nR_rect_00: {R}\n")
+        (root / date / "calib_velo_to_cam.txt").write_text(
+            f"R: {R}\nT: -4.069766e-03 -7.631618e-02 -2.717806e-01\n")
+        (root / date / "calib_imu_to_velo.txt").write_text(
+            f"R: {R}\nT: -8.086759e-01 3.195559e-01 -7.997231e-01\n")
+        drive = root / date / f"{date}_drive_{num:04d}_sync"
+        ys, xs = np.mgrid[:h, :w].astype(np.float32)
+        depth = 5.0 + 70.0 * (1.0 - ys / h) ** 2 + 3.0 * np.sin(xs / 97.0)
+        for d in ("oxts/data", "proj_depth/velodyne/image_02"):
+            (drive / d).mkdir(parents=True)
+        for i, frame in enumerate(photo_frames(rng, KITTI_FRAMES, h, w)):
+            rel = f"{date}/{drive.name}/image_02/data/{i:010d}.png"
+            jobs.append((root / rel, frame))
+            packet = [49.0 + i * 1e-5, 8.43 + i * 2e-5, 110.0 + 0.01 * i, 0.001 * i, 0.02,
+                      0.5 + 0.001 * i] + [0.0] * 24
+            np.savetxt(drive / "oxts/data" / f"{i:010d}.txt", [packet], delimiter=" ")
+            valid = rng.uniform(size=(h, w)) < VELODYNE_DENSITY
+            np.savez_compressed(drive / "proj_depth/velodyne/image_02" / f"{i:010d}.npz",
+                                velodyne_depth=(depth * valid).astype(np.float32))
+            splits["test"].append(rel)
+            if 1 <= i <= KITTI_TRAIN:
+                splits["train"].append(rel)
+            if i in (10, 11):
+                splits["val"].append(rel)
+            if i in (14, 15):
+                splits["test_a"].append(rel)
+    write_images(jobs)
+    for name, lines in splits.items():
+        (root / f"{name}.txt").write_text("".join(f"{x}\n" for x in lines))
+    return root
+
+
+def write_frame_folder(root):
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    write_images([(root / f"{i:06d}.jpg", frame) for i, frame in
+                  enumerate(photo_frames(rng, OMNICAM_FRAMES, *OMNICAM_SIZE))])
+    return root
+
+
+def write_dgp_scene(root):
+    """One DGP scene: per sample a JPEG of each camera with its pose, and a
+    lidar cloud; calibration for the cameras and the lidar."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    h, w = DDAD_SIZE
+    scene = root / "000000"
+    cams, lidar = ["camera_01", "camera_05"], "lidar"
+    identity = {"translation": {"x": 0, "y": 0, "z": 0},
+                "rotation": {"qw": 1, "qx": 0, "qy": 0, "qz": 0}}
+    data, samples, jobs = [], [], []
+    frames = {cam: list(photo_frames(rng, DDAD_FRAMES, h, w, shift=6)) for cam in cams}
+    (scene / "point_cloud" / lidar).mkdir(parents=True)
+    for k in range(DDAD_FRAMES):
+        keys = []
+        for cam in cams:
+            fn = f"rgb/{cam}/{k:015d}.jpg"
+            jobs.append((scene / fn, frames[cam][k]))
+            data.append({"key": f"{cam}_{k}", "datum": {"image": {
+                "channel": cam, "filename": fn,
+                "pose": {"translation": {"x": 0.5 * k, "y": 0.0, "z": 0.0},
+                         "rotation": {"qw": 1, "qx": 0, "qy": 0, "qz": 0}}}}})
+            keys.append(f"{cam}_{k}")
+        points = np.stack([rng.uniform(-40, 40, DDAD_POINTS), rng.uniform(-3, 12, DDAD_POINTS),
+                           rng.uniform(2, 150, DDAD_POINTS)], -1).astype(np.float32)
+        fn = f"point_cloud/{lidar}/{k:015d}.npz"
+        np.savez_compressed(scene / fn, point_cloud=points)
+        data.append({"key": f"{lidar}_{k}", "datum": {"point_cloud": {
+            "channel": lidar, "filename": fn}}})
+        samples.append({"datum_keys": keys + [f"{lidar}_{k}"]})
+    write_images(jobs)
+    (scene / "calibration").mkdir()
+    (scene / "calibration" / "calib.json").write_text(json.dumps({
+        "names": cams + [lidar],
+        "intrinsics": [{"fx": 1000.0, "fy": 1000.0, "cx": w / 2, "cy": h / 2}] * 2 + [{}],
+        "extrinsics": [identity] * 3}))
+    (scene / "scene_000000.json").write_text(json.dumps({"data": data, "samples": samples}))
+    return root
+
+
+def decode_times(files):
+    """Median ms of a decode to uint8 RGB, natively and with Pillow, of each
+    named file."""
+    import numpy as np
+    from PIL import Image
+
+    from packnet_sfm_tpu_torch import native
+
+    def pillow(path):
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
+    out = {}
+    for name, path in files.items():
+        row = {}
+        for decoder, fn in (("native", native.decode_image), ("pillow", pillow)):
+            if decoder == "native" and not native.native_available():
+                row[decoder] = None
+                continue
+            fn(str(path))
+            ms = []
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                fn(str(path))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[decoder] = statistics.median(ms)
+        out[name] = row
+        native_ms = "not built" if row["native"] is None else f"{row['native']:.3f} ms"
+        log(f"decode {name} to uint8 RGB: native {native_ms}, Pillow {row['pillow']:.3f} ms "
+            f"(median of {DECODE_REPS})")
+    return out
+
+
+def read_counts():
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+    from packnet_sfm_tpu_torch.ops import warp
+
+    return {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
+
+
+def reset_counts():
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+    from packnet_sfm_tpu_torch.ops import warp
+
+    sa.reset_launch_counts()
+    warp.reset_launch_counts()
+
+
+def data_train_run(device, cfg, per_step, label, bare=True):
+    """``cli.train``'s build_trainer and fit on ``cfg`` (a config dict),
+    the launch counters read around the fit; then, with ``bare``, the train
+    loader alone over an epoch and the bare step on that epoch's batches.
+    Returns the run's numbers."""
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.cli.train import build_trainer
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, zero_metrics
+    from packnet_sfm_tpu_torch.models.batch_utils import stack_multicam_batch
+
+    gc.collect()                    # an earlier run's trainer must not count in this one's peak
+    torch.cuda.empty_cache()
+    trainer = build_trainer(cfg, device=device)
+    batch_images = []
+    build = trainer._train_step_for
+
+    def watched(num_scales):
+        step = build(num_scales)
+
+        def run(acc, batch, progress):
+            batch_images.append(batch["rgb"].shape[0])
+            return step(acc, batch, progress)
+        return run
+    trainer._train_step_for = watched
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**20
+    reset_counts()
+    t0 = time.perf_counter()
+    history = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    del trainer._train_step_for     # the wrapper, which holds the trainer in a cycle
+    counts, steps = read_counts(), trainer.step
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    h = history[-1]
+    log(f"{label}: fit of {steps} steps (images a step {sorted(set(batch_images))}) in "
+        f"{fit_s:.1f} s: loss {h['loss']:.5f}, {h['imgs_per_sec']:.2f} imgs/s over "
+        f"{h['seconds']:.2f} s of training, validation {h['val_seconds']:.2f} s, peak "
+        f"{h['peak_mib']:.1f} MiB ({held:.1f} MiB allocated before the fit: the model); "
+        f"launches {counts}")
+    if counts != want or steps != trainer.steps_per_epoch * len(history):
+        raise AssertionError(f"{label}: {steps} steps, launch counts {counts}, expected {want}")
+    for e in history:
+        tables = [np.array([v[m] for m in EVAL_MODES]) for v in e["val"]]
+        if not (np.isfinite(e["loss"]) and all(np.all(np.isfinite(t)) for t in tables)):
+            raise AssertionError(f"{label}: epoch {e['epoch']}: loss {e['loss']}, {tables}")
+    rec = dict(steps=steps, images_per_step=sorted(set(batch_images)), loss=h["loss"],
+               imgs_per_sec=h["imgs_per_sec"], train_seconds=h["seconds"],
+               val_seconds=h["val_seconds"], peak_mib=h["peak_mib"], mib_before_fit=held,
+               launches=counts,
+               launches_per_step={k: v / steps for k, v in counts.items() if v},
+               val=[{m: float(v[m][0]) for m in EVAL_MODES} for v in h["val"]])
+    if not bare:
+        return rec
+    loader = trainer.train_loaders[0]
+    t0 = time.perf_counter()
+    batches = [stack_multicam_batch(b) for b in loader.epoch(0)]
+    loader_s = time.perf_counter() - t0
+    n_samples = sum(len(b["idx"]) for b in batches)
+    (num_scales,) = trainer._train_steps
+    step, acc, ms = build(num_scales), zero_metrics(device), []
+    for b in batches:
+        t0 = time.perf_counter()
+        acc = step(acc, b, 0.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    bare_ms = statistics.median(ms[1:])
+    images = batches[0]["rgb"].shape[0]
+    rec.update(loader_samples_per_s=n_samples / loader_s, loader_seconds=loader_s,
+               loader_threads=loader.num_workers, bare_step_ms=bare_ms,
+               bare_images_per_s=images / bare_ms * 1e3,
+               loop_share=h["imgs_per_sec"] / (images / bare_ms * 1e3))
+    log(f"{label}: train loader alone {n_samples} samples in {loader_s:.2f} s "
+        f"({rec['loader_samples_per_s']:.1f} samples/s, {loader.num_workers} threads); bare "
+        f"step on its batches " + ", ".join(f"{x:.1f}" for x in ms)
+        + f" ms, median of steps 2-{len(ms)} {bare_ms:.2f} ms ({rec['bare_images_per_s']:.1f} "
+        f"images/s); the fit's epoch ran at {rec['loop_share']:.3f} of it")
+    return rec
+
+
+def kitti_data_run(device, root, out):
+    """train_kitti.yaml on the KITTI tree, then eval_kitti.yaml on its
+    checkpoint (B = 4 in shape buckets against B = 1), then infer."""
+    import copy
+
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.cli.eval import evaluate
+    from packnet_sfm_tpu_torch.cli.infer import infer_and_save
+    from packnet_sfm_tpu_torch.core.config import EVAL_KITTI, KITTI, config_from_dict
+    from packnet_sfm_tpu_torch.datasets.loader import DataLoader, setup_dataset
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES
+
+    cfg = copy.deepcopy(KITTI)
+    cfg["arch"]["max_epochs"] = 1
+    cfg["checkpoint"] = {"filepath": str(out / "kitti_ckpt"), "save_top_k": 1}
+    cfg["datasets"]["train"].update(path=[str(root)], split=["train.txt"])
+    cfg["datasets"]["validation"].update(path=[str(root)], split=["val.txt", "test_a.txt"])
+    cfg["datasets"]["test"].update(path=[str(root)], split=["test.txt"])
+    rec = data_train_run(device, cfg, FLAGSHIP_LAUNCHES, "KITTI train_kitti.yaml")
+    (ckpt,) = sorted((out / "kitti_ckpt").iterdir())
+
+    reset_counts()
+    tables, secs = {}, {}
+    for b in (4, 1):
+        ecfg = copy.deepcopy(EVAL_KITTI)
+        ecfg["datasets"]["test"].update(path=[str(root)], split=["test.txt"], batch_size=b)
+        ecfg["save"] = {"folder": ""}
+        t0 = time.perf_counter()
+        tables[b] = evaluate(str(ckpt), ecfg, device=device)[0]
+        secs[b] = time.perf_counter() - t0
+    parsed = config_from_dict(ecfg)
+    ds = setup_dataset(parsed.datasets.test, "test", parsed.datasets.augmentation)[0]
+    plan = DataLoader(ds, batch_size=4, shuffle=False, drop_last=False)._batch_plan(0)
+    buckets = {}
+    for idxs, pad in plan:
+        shape = ds.sample_shape(int(idxs[0]))
+        if any(ds.sample_shape(int(i)) != shape for i in idxs):
+            raise AssertionError(f"a mixed batch: {idxs}")
+        buckets[str(shape)] = buckets.get(str(shape), 0) + 1
+    diff = max(float(np.abs(tables[4][m] - tables[1][m]).max()) for m in EVAL_MODES)
+    log(f"KITTI eval_kitti.yaml on {len(ds)} samples: B=4 {secs[4]:.1f} s in {len(plan)} "
+        f"batches by ground-truth size {buckets}, B=1 {secs[1]:.1f} s; max |table B=4 - "
+        f"B=1| {diff:.3e} (tolerance {TOL_PROTOCOL:g}); depth_gt abs_rel "
+        f"{tables[4]['depth_gt'][0]:.4f}")
+    if len(buckets) != 3 or not diff <= TOL_PROTOCOL:
+        raise AssertionError("eval on the KITTI tree: buckets or tables disagree")
+    if not all(np.all(np.isfinite(t[m])) for t in tables.values() for m in EVAL_MODES):
+        raise AssertionError(f"non-finite eval table: {tables}")
+
+    frames = root / KITTI_DRIVES[0][0] / f"{KITTI_DRIVES[0][0]}_drive_{KITTI_DRIVES[0][1]:04d}_sync" \
+        / "image_02" / "data"
+    printed = io.StringIO()         # the CLI's line per image
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        infer_and_save(str(ckpt), str(frames), str(out / "infer"), save="npz", device=device)
+    infer_s = time.perf_counter() - t0
+    written = sorted((out / "infer").glob("*.npz"))
+    depths = [np.load(p)["depth"] for p in written]
+    counts = read_counts()
+    log(f"KITTI infer on {len(written)} frames of {KITTI_DRIVES[0][2]}: {infer_s:.1f} s, model "
+        f"build and restore included; launches during eval and infer {counts}")
+    shape = tuple(config_from_dict(cfg).datasets.augmentation.image_shape)
+    lines = printed.getvalue().splitlines()
+    if len(written) != KITTI_FRAMES or len(lines) != KITTI_FRAMES or any(
+            d.shape != shape or not np.all(np.isfinite(d)) for d in depths):
+        raise AssertionError(f"infer outputs: {[d.shape for d in depths]}")
+    if any(counts.values()):
+        raise AssertionError("eval or infer launched a kernel of the port")
+    rec.update(eval_samples=len(ds), eval_buckets=buckets, eval_seconds_b4=secs[4],
+               eval_seconds_b1=secs[1], eval_b4_vs_b1_max_abs_diff=diff,
+               eval_table_b4={m: [float(x) for x in tables[4][m]] for m in EVAL_MODES},
+               infer_frames=len(written), infer_seconds=infer_s)
+    return rec
+
+
+def data_phase(device):
+    """Phase 7 (see the module docstring); returns its numbers."""
+    import copy
+    import shutil
+
+    from packnet_sfm_tpu_torch import native
+    from packnet_sfm_tpu_torch.core.config import DDAD, OMNICAM
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_data"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    kitti = write_kitti_tree(root / "KITTI_raw")
+    omni = write_frame_folder(root / "omnicam")
+    dgp = write_dgp_scene(root / "DDAD")
+    log(f"phase 7 trees written in {time.perf_counter() - t0:.1f} s: KITTI raw "
+        f"{len(KITTI_DRIVES)} drives x {KITTI_FRAMES} frames, an image folder of "
+        f"{OMNICAM_FRAMES} frames at {OMNICAM_SIZE[0]}x{OMNICAM_SIZE[1]}, a DGP scene of "
+        f"{DDAD_FRAMES} samples at {DDAD_SIZE[0]}x{DDAD_SIZE[1]} with {DDAD_POINTS} lidar points")
+    which = native.decoder()
+    log(f"image decoder in use: {which}"
+        + ("" if which == "native" else f"; the native build failed: {native.build_error()}"))
+    result = dict(decoder=which, native_build_error=native.build_error())
+    first = kitti / "test.txt"
+    result["decode_ms"] = decode_times({
+        "kitti_375x1242_png": kitti / first.read_text().split()[0],
+        "ddad_1216x1936_jpg": dgp / "000000" / "rgb" / "camera_01" / f"{0:015d}.jpg"})
+
+    result["kitti"] = kitti_data_run(device, kitti, root)
+
+    cfg = copy.deepcopy(OMNICAM)
+    cfg["arch"]["max_epochs"] = 1
+    cfg["datasets"]["train"]["path"] = cfg["datasets"]["test"]["path"] = [str(omni)]
+    cfg["datasets"]["validation"] = {"dataset": []}
+    result["omnicam"] = data_train_run(device, cfg, NRS_LAUNCHES, "Image train_omnicam.yaml")
+
+    cfg = copy.deepcopy(DDAD)
+    cfg["arch"]["max_epochs"] = 1
+    for split in ("train", "validation", "test"):
+        cfg["datasets"][split]["path"] = [str(dgp)]
+    result["ddad"] = data_train_run(device, cfg, FLAGSHIP_LAUNCHES, "DGP train_ddad.yaml")
+    cfg["datasets"]["train"].update(cameras=[["camera_01", "camera_05"]], repeat=[1])
+    cfg["datasets"]["validation"] = {"dataset": []}
+    two = data_train_run(device, cfg, FLAGSHIP_LAUNCHES, "DGP train_ddad.yaml, two cameras",
+                         bare=False)
+    if two["images_per_step"] != [2 * cfg["datasets"]["train"]["batch_size"]]:
+        raise AssertionError(f"two cameras: {two['images_per_step']} images a step")
+    result["ddad_two_cameras"] = two
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 7 took {result['seconds']:.1f} s")
+    return result
+
+
 def main():
     import torch
 
@@ -1447,6 +1890,8 @@ def main():
     evaluated = eval_phase(device, kitti)
     torch.cuda.empty_cache()
     trained = train_phase(device)
+    torch.cuda.empty_cache()
+    data = data_phase(device)
 
     # each kernel's launches are those of the train path it belongs to, as
     # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
@@ -1481,10 +1926,14 @@ def main():
                                 for key, launches in ((name, counts[name]),
                                                       (name + "_bf16",
                                                        kitti_counts[name + "_bf16"]))]
+        # the launches of the real-format runs of phase 7
+        entry["data_launches"] = {run: data[run]["launches"][name]
+                                  for run in ("kitti", "omnicam", "ddad", "ddad_two_cameras")}
         kernels.append(entry)
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"data": data}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

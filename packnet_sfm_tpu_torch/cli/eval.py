@@ -5,9 +5,10 @@
 
 Restores a checkpoint directory (``engine/checkpoint.py``), with the config
 embedded in its meta.json and an optional yaml merged over it (PyYAML is
-imported only then), runs the test split through ``Trainer.test`` and prints
-the metric tables. Runs on the card unless ``--device cpu`` is given.
-``--half`` sets ``arch.dtype: bfloat16``, as the JAX CLI does: the model
+imported only then; ``evaluate`` also takes that config as a dict, such as
+``core/config.EVAL_KITTI``, for hosts without PyYAML), runs the test split
+through ``Trainer.test`` and prints the metric tables. Runs on the card
+unless ``--device cpu`` is given. ``--half`` sets ``arch.dtype: bfloat16``, as the JAX CLI does: the model
 computes in bfloat16 (``engine/factory.setup_model``); a checkpoint whose
 config says bfloat16 evaluates so without it.
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Mapping
 
 
 def parse_args(argv=None):
@@ -32,15 +34,18 @@ def parse_args(argv=None):
 
 def evaluate(checkpoint: str, config_path=None, half=False, device="cuda"):
     """The test split's metric tables ([{mode: [7]}], one per dataset) of
-    the checkpoint's model."""
+    the checkpoint's model. ``config_path``, a yaml path or a dict, is
+    filled in from the defaults and merged over the checkpoint's config."""
     from packnet_sfm_tpu_torch.core.config import (
-        ConfigNode, load_config, merge_config, parse_train_config)
+        ConfigNode, config_from_dict, load_config, merge_config, parse_train_config)
     from packnet_sfm_tpu_torch.engine.trainer import Trainer
 
     with open(os.path.join(checkpoint, "meta.json")) as f:
         meta = json.load(f)
     config = ConfigNode.from_dict(meta["config"])
-    if config_path:
+    if isinstance(config_path, Mapping):
+        config = merge_config(config, config_from_dict(config_path).to_dict())
+    elif config_path:
         config = merge_config(config, load_config(config_path).to_dict())
     if half:
         config.arch.dtype = "bfloat16"

@@ -358,3 +358,54 @@ OVERFIT_PACKNET_SYNTHETIC = {
         "test": _synthetic_split(8, 16),
     },
 }
+
+
+def _dgp_split(split: str, **extra) -> dict:
+    return {"dataset": ["DGP"], "path": ["/data/datasets/DDAD/ddad_train_val"],
+            "split": [split], "depth_type": ["lidar"], "cameras": [["camera_01"]], **extra}
+
+
+# configs/train_ddad.yaml as ``yaml.safe_load`` returns it: DDAD (DGP)
+# self-supervised training (SelfSupModel, PackNet01-1A + PoseNet, 384x640,
+# batch 2). tests/test_torch_port_rules.py holds the two equal.
+DDAD = {
+    "arch": {"dtype": "bfloat16"},
+    "model": {
+        "name": "SelfSupModel",
+        "optimizer": {"depth": {"lr": 0.0002}, "pose": {"lr": 0.0002}},
+        "scheduler": {"name": "StepLR", "step_size": 30, "gamma": 0.5},
+        "depth_net": {"name": "PackNet01", "version": "1A"},
+        "pose_net": {"name": "PoseNet"},
+        "params": {"crop": "", "min_depth": 0.0, "max_depth": 200.0},
+    },
+    "datasets": {
+        "augmentation": {"image_shape": "(384, 640)"},
+        "train": _dgp_split("train", batch_size=2, repeat=[5]),
+        "validation": _dgp_split("val"),
+        "test": _dgp_split("val"),
+    },
+}
+
+
+# configs/eval_kitti.yaml as ``yaml.safe_load`` returns it: the KITTI
+# eigen_test evaluation of PackNet01-1A at 192x640 (``cli/eval.py``'s
+# ``--config``). tests/test_torch_port_rules.py holds the two equal.
+EVAL_KITTI = {
+    "model": {
+        "name": "SelfSupModel",
+        "depth_net": {"name": "PackNet01", "version": "1A"},
+        "pose_net": {"name": "PoseNet"},
+        "params": {"crop": "garg", "min_depth": 0.0, "max_depth": 80.0},
+    },
+    "datasets": {
+        "augmentation": {"image_shape": "(192, 640)"},
+        "test": {
+            "dataset": ["KITTI"],
+            "path": ["/data/datasets/KITTI_raw"],
+            "split": ["data_splits/eigen_test_files.txt"],
+            "depth_type": ["velodyne"],
+        },
+    },
+    "save": {"folder": "/data/save",
+             "depth": {"rgb": True, "viz": True, "npz": True, "png": True}},
+}

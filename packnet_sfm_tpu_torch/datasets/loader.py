@@ -15,10 +15,13 @@ generator from (seed, epoch, position), so every epoch and every repeat
 copy of a sample sees fresh jitter factors, each a pure function of those
 three. (The JAX package seeds it
 from (seed, sample index) alone, so that its every epoch and repeat copy of
-a sample draws the same factors.)
+a sample draws the same factors.) A stacked multi-camera sample (DGP) is
+transformed camera by camera, each camera from the same draw, so that the
+cameras of a sample share their jitter factors, as in the JAX package,
+where every camera's transform is seeded alike.
 
-Ported datasets: Synthetic. KITTI, Image and DGP wait for their data
-(ROADMAP.md §1 item 11).
+Datasets: KITTI (raw tree and split file), Image (a folder of frames), DGP
+(DDAD scenes) and Synthetic.
 """
 
 from __future__ import annotations
@@ -175,10 +178,15 @@ def make_transform(mode: str, aug_cfg, seed: int = 42):
         device_jitter = bool(aug_cfg.get("device_jitter", True))
         resize_filter = str(aug_cfg.get("resize_filter", "area"))
 
-        def train_tf(sample, idx=0, epoch=0):
+        def one_camera(sample, idx, epoch):
             rng = np.random.default_rng(np.random.SeedSequence([seed, epoch, idx]))
             return train_transform(sample, image_shape, jitter, crop, rng,
                                    device_jitter=device_jitter, resize_filter=resize_filter)
+
+        def train_tf(sample, idx=0, epoch=0):
+            if sample["rgb"].ndim == 3:
+                return one_camera(sample, idx, epoch)
+            return _per_camera(one_camera, sample, idx, epoch)
         return train_tf
     crop = tuple(aug_cfg.get("crop_eval_borders", ()) or ())
 
@@ -186,6 +194,27 @@ def make_transform(mode: str, aug_cfg, seed: int = 42):
         return eval_transform(sample, image_shape, crop,
                               depth_preserve_input=(mode == "validation"))
     return tf
+
+
+def _per_camera(transform, sample, idx, epoch):
+    """``transform`` applied to each camera of a stacked sample [N, ...],
+    restacked. The cameras' 'jitter' factors, drawn alike, become the one
+    row [4] of the sample, which ``stack_multicam_batch`` repeats for each
+    camera of the folded batch."""
+    from packnet_sfm_tpu_torch.datasets.ddad import stack_cameras, unstack_cameras
+
+    cams = [transform(cam, idx, epoch) for cam in unstack_cameras(sample)]
+    jitter = [cam.pop("jitter") for cam in cams if "jitter" in cam]
+    out = stack_cameras(cams)
+    if jitter:
+        out["jitter"] = jitter[0]
+    return out
+
+
+def _untransformed(sample, idx=0):
+    """A train split's dataset transform: none, so that its reader hands the
+    loader's train transform the decoded uint8 images."""
+    return sample
 
 
 class RepeatDataset:
@@ -218,9 +247,14 @@ class ConcatDataset:
 def setup_dataset(cfg, mode: str, aug_cfg, seed: int = 42, requirements=None):
     """Instantiate the datasets named in a split config, one per entry. A
     train split's dataset repeats ``repeat[i]`` times an epoch and carries
-    no transform (its loader applies the train transform); ``requirements``
-    are the model's train-data needs ('gt_depth', 'input_depth'), which
-    Synthetic always meets."""
+    no transform (its loader applies the train transform); an eval split's
+    carries the split's eval transform. ``requirements`` are the model's
+    train-data needs ('gt_depth', 'input_depth', 'gt_pose'): the first two
+    must be configured for a train split that is not Synthetic, the last
+    loads KITTI's OXTS poses."""
+    from packnet_sfm_tpu_torch.datasets.ddad import DDADDataset
+    from packnet_sfm_tpu_torch.datasets.image_folder import ImageFolderDataset
+    from packnet_sfm_tpu_torch.datasets.kitti import KITTIDataset
     from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
 
     requirements = requirements or {}
@@ -237,20 +271,33 @@ def setup_dataset(cfg, mode: str, aug_cfg, seed: int = 42, requirements=None):
                 raise ValueError(
                     f"Model requires input (lidar) depth but train dataset "
                     f"{i} ({name}) has no input_depth_type configured")
-        if name in ("KITTI", "Image", "DGP"):
-            raise NotImplementedError(
-                f"dataset {name!r} is not ported yet; see ROADMAP.md §1 item 11")
-        if name != "Synthetic":
+        transform = None if train else make_transform(mode, aug_cfg, seed)
+        common = dict(train=train, data_transform=transform or _untransformed,
+                      back_context=cfg.back_context, forward_context=cfg.forward_context)
+        if name == "KITTI":
+            split, path = cfg.split[i], cfg.path[i]
+            ds = KITTIDataset(
+                path, split if split.startswith("/") else f"{path}/{split}",
+                depth_type=cfg.depth_type[i],
+                input_depth_type=(cfg.input_depth_type[i]
+                                  if i < len(cfg.input_depth_type) else None),
+                with_pose=requirements.get("gt_pose", False),
+                **common)
+        elif name == "Image":
+            ds = ImageFolderDataset(cfg.path[i], split=cfg.split[i] or None, **common)
+        elif name == "DGP":
+            ds = DDADDataset(cfg.path[i], cfg.split[i], depth_type=cfg.depth_type[i],
+                             cameras=cfg.cameras[i] if i < len(cfg.cameras) else None,
+                             **common)
+        elif name == "Synthetic":
+            ds = SyntheticSfmDataset(
+                seed=seed + i,
+                length=cfg.get("synthetic_length", 64),
+                height=cfg.get("synthetic_height", 64),
+                width=cfg.get("synthetic_width", 96),
+                **dict(common, data_transform=transform))
+        else:
             raise ValueError(f"Unknown dataset {name}")
-        ds = SyntheticSfmDataset(
-            seed=seed + i,
-            length=cfg.get("synthetic_length", 64),
-            height=cfg.get("synthetic_height", 64),
-            width=cfg.get("synthetic_width", 96),
-            train=train,
-            data_transform=None if train else make_transform(mode, aug_cfg, seed),
-            back_context=cfg.back_context,
-            forward_context=cfg.forward_context)
         if train:
             repeat = cfg.get("repeat", [1])
             if i < len(repeat) and repeat[i] > 1:

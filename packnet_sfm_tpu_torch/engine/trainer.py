@@ -16,7 +16,11 @@ train split.
   <mode>_<metric>, <di>-<mode>_<metric>}; with a profile directory, epoch 1
   is traced with ``torch.profiler``.
 - ``train_epoch``: progressive scale count, one train step a batch, the
-  device-side metric sums read once at the end, images/s.
+  device-side metric sums read once at the end, images/s (a multi-camera
+  batch of B samples of N cameras counts B*N images).
+- A multi-camera batch (DGP) is folded to [B*N, ...]
+  (``models/batch_utils.stack_multicam_batch``) before a train or eval
+  step takes it; ``validate`` averages a sample's N metric rows.
 - Preemption: SIGTERM/SIGINT set a flag; the epoch drains at the next batch
   boundary and ``fit`` writes ``preempt_epoch=NN.ckpt`` recorded as epoch
   NN - 1, so that a resume redoes the interrupted epoch.
@@ -66,6 +70,7 @@ from packnet_sfm_tpu_torch.engine.train import (
     zero_metrics,
 )
 from packnet_sfm_tpu_torch.losses.progressive import progressive_num_scales
+from packnet_sfm_tpu_torch.models.batch_utils import stack_multicam_batch
 
 _TRAIN_STATE_KEYS = ("optimizer", "scheduler", "generator")
 
@@ -265,6 +270,7 @@ class Trainer:
             for batch in loader.epoch(epoch):
                 if self._preempt_requested:
                     break
+                batch = stack_multicam_batch(batch)
                 acc = step_fn(acc, batch, progress)
                 self.step += 1
                 images += batch["rgb"].shape[0]
@@ -309,7 +315,8 @@ class Trainer:
                 has_depth = True
                 idx = np.asarray(batch["idx"])
                 bsz = len(idx) - int(batch.get("pad_count", 0))
-                out = self.eval_step(batch)
+                folded = stack_multicam_batch(batch)
+                out = self.eval_step(folded)
                 for m in EVAL_MODES:
                     r = out[m].cpu().numpy()               # [B*cams, 7]
                     if r.shape[0] != len(idx):             # multi-camera batches:
@@ -321,8 +328,8 @@ class Trainer:
                     self._save_depth_outputs(save_folder, batch, out, bsz)
                 if self.logger is not None and bi % log_interval == 0 and bsz > 0:
                     self.logger.log_depth_images(
-                        np.asarray(batch["rgb"][0]), out["inv_depth"][0].cpu().numpy(),
-                        np.asarray(batch["depth"][0]), prefix=f"val{di}-batch{bi}",
+                        np.asarray(folded["rgb"][0]), out["inv_depth"][0].cpu().numpy(),
+                        np.asarray(folded["depth"][0]), prefix=f"val{di}-batch{bi}",
                         step=self.step)
             if not has_depth:
                 # an all-zero metric table would hide a misconfigured split

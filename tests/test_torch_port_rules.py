@@ -6,17 +6,22 @@
   default and raise without it, unless the caller asks for the CPU; the
   kernel wrappers raise on a non-CUDA tensor;
 - its own copies of host modules agree with the JAX package's, exactly: the
-  OMNICAM, KITTI, OVERFIT_SYNTHETIC and OVERFIT_PACKNET_SYNTHETIC dicts with
-  their yaml files, the synthetic dataset sample for sample (its train
-  split too), the eval slice's copies (eval transform, depth resizes, crop
-  borders, collate, the loader's batch plan and epochs, depth files, the
-  colormap, image decode) and the training slice's (the encoder artifact's
-  layout and conv1 widening, the console helpers; the train transform in
-  tests/test_torch_augmentations.py);
-- what is not ported yet refuses with a pointer to ROADMAP.md (datasets
-  other than Synthetic, ResNets other than 18, multi-process training, the
-  S3 sync; bfloat16 is accepted), and a missing Pillow or matplotlib raises
-  ImportError only where one is used;
+  OMNICAM, KITTI, DDAD, EVAL_KITTI, OVERFIT_SYNTHETIC and
+  OVERFIT_PACKNET_SYNTHETIC dicts with their yaml files, the synthetic
+  dataset sample for sample (its train split too), the eval slice's copies
+  (eval transform, depth resizes, crop borders, collate, the loader's batch
+  plan and epochs, depth files, the colormap, image decode), the training
+  slice's (the encoder artifact's layout and conv1 widening, the console
+  helpers; the train transform in tests/test_torch_augmentations.py) and the
+  data slice's native decode (``native/image_pipeline.cpp``: the same code
+  and exported signatures as the JAX package's ``native/image_pipeline.cpp``,
+  and ctypes types that agree with them; the readers in
+  tests/test_torch_{datasets,ddad,native}.py);
+- ``setup_dataset`` builds the KITTI, Image and DGP readers for every split;
+- what is not ported yet refuses with a pointer to ROADMAP.md (ResNets
+  other than 18, multi-process training, the S3 sync; bfloat16 is
+  accepted), and a missing Pillow or matplotlib raises ImportError only
+  where one is used;
 - the package calls no library warp: no source of it mentions
   ``F.grid_sample``;
 - every ``extern "C"`` launcher of ``csrc/*.cu`` has its ctypes argument
@@ -47,6 +52,8 @@ from packnet_sfm_tpu_torch.engine.factory import setup_model
 from packnet_sfm_tpu_torch.ops import _cuda
 from packnet_sfm_tpu_torch.ops import softargmax as sa
 from packnet_sfm_tpu_torch.ops import warp
+from tests.test_datasets import kitti_root  # noqa: F401 (a fixture)
+from tests.test_ddad import ddad_root  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -69,6 +76,9 @@ def test_importing_the_port_pulls_in_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 20
+    for module in ("datasets.kitti", "datasets.kitti_utils", "datasets.image_folder",
+                   "datasets.ddad", "models.batch_utils", "native"):
+        assert f"packnet_sfm_tpu_torch.{module}" in MODULES
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
@@ -227,6 +237,57 @@ def test_omnicam_matches_the_yaml():
     assert loaded == built
     assert built.datasets.augmentation.image_shape == (384, 384)
     assert parse_train_config(built).prepared
+
+
+@pytest.mark.parametrize("name,yaml_name", [("DDAD", "train_ddad"), ("EVAL_KITTI", "eval_kitti")])
+def test_data_configs_match_the_yaml(name, yaml_name):
+    from packnet_sfm_tpu_torch.core import config
+
+    yaml = pytest.importorskip("yaml")
+    path = ROOT / "configs" / f"{yaml_name}.yaml"
+    assert getattr(config, name) == yaml.safe_load(path.read_text())
+    loaded = load_config(str(path))
+    built = config_from_dict(getattr(config, name))
+    built.config = loaded.config
+    assert loaded == built
+    assert parse_train_config(built).prepared
+
+
+def _exported(source: str):
+    """{name: parameter list as text} of the functions inside a source's
+    ``extern "C" { ... }`` block."""
+    block = source[source.index('extern "C" {'):]
+    return {name: " ".join(params.split())
+            for name, params in re.findall(r"^\w[\w\s\*]*?\b(\w+)\(([^)]*)\)\s*\{", block, re.M)}
+
+
+def test_native_source_copy_matches_the_jax_package():
+    """The port's native/image_pipeline.cpp is the JAX package's code (its
+    header comment aside), exports the same functions with the same
+    parameters, and its ctypes bindings type each parameter by its kind."""
+    from packnet_sfm_tpu_torch import native
+
+    ours, theirs = native.SOURCE.read_text(), (ROOT / "native" / "image_pipeline.cpp").read_text()
+    body = ours.index("#include")
+    assert ours[body:] == theirs[theirs.index("#include"):]
+    exported = _exported(ours)
+    assert exported == _exported(theirs) == {
+        "pn_thread_count": "",
+        "pn_decode_image": "const char* path, uint8_t* out, int64_t max_bytes, int* out_w, "
+                           "int* out_h",
+        "pn_load_batch": "const char** paths, int n, int oh, int ow, float* out"}
+    lib = native.load_native()
+    if lib is None:
+        pytest.skip(f"native toolchain unavailable: {native.build_error()}")
+    kinds = {"const char** paths": ctypes.POINTER(ctypes.c_char_p),
+             "const char* path": ctypes.c_char_p, "uint8_t* out": ctypes.POINTER(ctypes.c_uint8),
+             "int64_t max_bytes": ctypes.c_int64, "float* out": ctypes.POINTER(ctypes.c_float),
+             "int* out_w": ctypes.POINTER(ctypes.c_int), "int* out_h": ctypes.POINTER(ctypes.c_int)}
+    for name, params in exported.items():
+        want = [kinds.get(p, ctypes.c_int if p.startswith("int ") else None)
+                for p in params.split(", ") if p]
+        assert getattr(lib, name).argtypes == want, name
+        assert getattr(lib, name).restype is ctypes.c_int
 
 
 def test_synthetic_dataset_copy_matches_the_jax_package():
@@ -450,17 +511,10 @@ def test_unported_eval_pieces_refuse_naming_the_roadmap(tmp_path):
     """What the eval and training slices leave out refuses, naming the
     roadmap item (or, for the S3 sync, what it would need)."""
     from packnet_sfm_tpu_torch.cli.train import train
-    from packnet_sfm_tpu_torch.datasets.loader import setup_dataset
     from packnet_sfm_tpu_torch.engine.checkpoint import ModelCheckpoint
     from packnet_sfm_tpu_torch.engine.trainer import Trainer
 
     cfg = _eval_config()
-    for mode in ("test", "train"):
-        for name in ("KITTI", "Image", "DGP"):
-            split = cfg.datasets[mode].clone()
-            split.dataset = [name]
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                setup_dataset(split, mode, cfg.datasets.augmentation)
     half = cfg.clone()                       # bfloat16 is ported: accepted
     half.arch.dtype = "bfloat16"
     assert Trainer(half, device="cpu").model.depth_net.dtype == torch.bfloat16
@@ -480,6 +534,49 @@ def test_unported_eval_pieces_refuse_naming_the_roadmap(tmp_path):
     wandb = cfg.clone()
     wandb.wandb.dry_run = False
     assert Trainer(wandb, device="cpu").logger.dry_run
+
+
+@pytest.mark.parametrize("mode", ["train", "validation", "test"])
+def test_setup_dataset_builds_every_reader(mode, kitti_root, ddad_root, tmp_path):
+    """KITTI (split relative to its path), Image (a folder of frames) and
+    DGP, each from a config split as the configs write it; a train split
+    repeats and hands its loader the images as read (uint8), an eval split
+    applies its eval transform (float32 at the image shape)."""
+    from PIL import Image
+
+    from packnet_sfm_tpu_torch.datasets.ddad import DDADDataset
+    from packnet_sfm_tpu_torch.datasets.image_folder import ImageFolderDataset
+    from packnet_sfm_tpu_torch.datasets.kitti import KITTIDataset
+    from packnet_sfm_tpu_torch.datasets.loader import RepeatDataset, setup_dataset
+
+    root, split = kitti_root
+    for i in range(4):
+        Image.fromarray(np.full((40, 56, 3), 20 * i, np.uint8)).save(tmp_path / f"{i:04d}.png")
+    cfg = config_from_dict({"datasets": {"augmentation": {"image_shape": (16, 24)}, mode: {
+        "dataset": ["KITTI", "Image", "DGP"], "path": [str(root), str(tmp_path), ddad_root],
+        "split": [split.name, "", "train"], "depth_type": ["velodyne", "", "LIDAR"],
+        "cameras": [[], [], ["CAMERA_01", "CAMERA_05"]], "repeat": [2, 1, 3],
+        "back_context": 1, "forward_context": 1}}})
+    datasets = setup_dataset(cfg.datasets[mode], mode, cfg.datasets.augmentation,
+                             requirements={"gt_pose": True})
+    kinds = (KITTIDataset, ImageFolderDataset, DDADDataset)
+    if mode == "train":
+        assert [type(d) for d in datasets] == [RepeatDataset, ImageFolderDataset,
+                                               RepeatDataset]
+        assert [len(d) for d in datasets] == [8, 2, 6]
+        readers = [datasets[0].dataset, datasets[1], datasets[2].dataset]
+    else:
+        readers = datasets
+        assert [len(d) for d in datasets] == [4, 2, 2]
+    assert [type(d) for d in readers] == list(kinds)
+    assert readers[0].with_pose and readers[2].cameras == ["CAMERA_01", "CAMERA_05"]
+    for d, lead in zip(datasets, ((), (), (2,))):
+        s = d[0]
+        assert len(s["rgb_context"]) == 2
+        if mode == "train":
+            assert s["rgb"].dtype == np.uint8 and s["rgb"].shape[:len(lead)] == lead
+        else:
+            assert s["rgb"].dtype == np.float32 and s["rgb"].shape == lead + (16, 24, 3)
 
 
 def test_console_helpers_copy_matches_the_jax_package(capsys):
