@@ -89,6 +89,29 @@ Phases, each of which fails the run:
    counts other than the config's per step, a non-finite loss or table;
    each single-camera config's train loader then runs alone over an epoch,
    and the bare step over that epoch's batches.
+8. Multi-process training and evaluation (``parallel/``), each run started
+   by ``torch.distributed.run --standalone``, one process a rank (the
+   ranks of a job are ``chip_smoke.py --worker <job.json>``): world 1 over
+   NCCL through ``cli.train --distributed``, phase 7's train_kitti.yaml run
+   again, whose loss and validation table must equal phase 7's (run
+   without it); the train_kitti.yaml step at batch 4 timed plain, with DDP
+   at world 1 (``parallel/scaling.py``, which also gives images/s and
+   efficiency at the world sizes the machine has cards for), and plain
+   again, each in a fresh process. Two ranks: NCCL with a card a rank where there are two cards,
+   else gloo with both on card 0, after NCCL's refusal of that is shown
+   and its message kept. On two ranks: the first train_kitti.yaml step as
+   written (4 rows a rank) against one rank on the 8 rows (the ranks'
+   mean loss, the gradient's cosine; the update's cosine against one rank
+   that takes the 8 rows in the ranks' two halves, and beside it against
+   one rank on the 8 at once); train_omnicam.yaml on phase 7's folder
+   (K6f, K6b and the bfloat16 warp launched on each rank, 2 a step, read
+   around the fit on each rank; the ranks' epoch losses equal);
+   eval_kitti.yaml on phase 7's checkpoint, whose table must equal phase
+   7's one-rank table; phase 6's recipe at repeat [DRAIN_REPEAT] with
+   SIGTERM to rank 1 alone, both ranks drained at one step, rank 0's
+   preempt_epoch=00.ckpt, and a two-rank resume that finishes the epoch.
+   Two ranks on one card are correctness runs, not speed figures; the
+   line says so.
 
 Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
 it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
@@ -96,14 +119,17 @@ float32 work; bfloat16 convolutions use the tensor cores regardless. Needs
 a CUDA device; exits non-zero, printing no result, without one.
 The last line is {"ok": true, "device": {...}}; before the kernels' line,
 one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
-{"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's and
-one line {"data": {...}} phase 7's.
+{"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's,
+one line {"data": {...}} phase 7's and one line {"distributed": {...}}
+phase 8's (with "backend" and "ranks_per_card").
 The line before the last lists each kernel with its dtype, its launches on
 its train path's steps (the bfloat16 steps; the float32-image warp's on the
 float32 flagship steps), error against the plain version, time, plain
 time, bound and, where one PyTorch call computes the same function, that
-call's time. A bound is the largest of the bytes' time, the operations'
-time and the time of an empty kernel's launch, measured here.
+call's time, and each kernel's launches on phase 7's runs
+("data_launches") and, by rank, on phase 8's ("distributed_launches"). A
+bound is the largest of the bytes' time, the operations' time and the time
+of an empty kernel's launch, measured here.
 """
 
 import contextlib
@@ -1709,31 +1735,22 @@ def data_train_run(device, cfg, per_step, label, bare=True):
 def kitti_data_run(device, root, out):
     """train_kitti.yaml on the KITTI tree, then eval_kitti.yaml on its
     checkpoint (B = 4 in shape buckets against B = 1), then infer."""
-    import copy
-
     import numpy as np
 
     from packnet_sfm_tpu_torch.cli.eval import evaluate
     from packnet_sfm_tpu_torch.cli.infer import infer_and_save
-    from packnet_sfm_tpu_torch.core.config import EVAL_KITTI, KITTI, config_from_dict
+    from packnet_sfm_tpu_torch.core.config import config_from_dict
     from packnet_sfm_tpu_torch.datasets.loader import DataLoader, setup_dataset
     from packnet_sfm_tpu_torch.engine.train import EVAL_MODES
 
-    cfg = copy.deepcopy(KITTI)
-    cfg["arch"]["max_epochs"] = 1
-    cfg["checkpoint"] = {"filepath": str(out / "kitti_ckpt"), "save_top_k": 1}
-    cfg["datasets"]["train"].update(path=[str(root)], split=["train.txt"])
-    cfg["datasets"]["validation"].update(path=[str(root)], split=["val.txt", "test_a.txt"])
-    cfg["datasets"]["test"].update(path=[str(root)], split=["test.txt"])
+    cfg = kitti_train_config(root, {"filepath": str(out / "kitti_ckpt"), "save_top_k": 1})
     rec = data_train_run(device, cfg, FLAGSHIP_LAUNCHES, "KITTI train_kitti.yaml")
     (ckpt,) = sorted((out / "kitti_ckpt").iterdir())
 
     reset_counts()
     tables, secs = {}, {}
     for b in (4, 1):
-        ecfg = copy.deepcopy(EVAL_KITTI)
-        ecfg["datasets"]["test"].update(path=[str(root)], split=["test.txt"], batch_size=b)
-        ecfg["save"] = {"folder": ""}
+        ecfg = kitti_eval_config(root, b)
         t0 = time.perf_counter()
         tables[b] = evaluate(str(ckpt), ecfg, device=device)[0]
         secs[b] = time.perf_counter() - t0
@@ -1788,7 +1805,7 @@ def data_phase(device):
     import shutil
 
     from packnet_sfm_tpu_torch import native
-    from packnet_sfm_tpu_torch.core.config import DDAD, OMNICAM
+    from packnet_sfm_tpu_torch.core.config import DDAD
 
     t_phase = time.perf_counter()
     root = ROOT / "build" / "chip_smoke_data"
@@ -1812,11 +1829,8 @@ def data_phase(device):
 
     result["kitti"] = kitti_data_run(device, kitti, root)
 
-    cfg = copy.deepcopy(OMNICAM)
-    cfg["arch"]["max_epochs"] = 1
-    cfg["datasets"]["train"]["path"] = cfg["datasets"]["test"]["path"] = [str(omni)]
-    cfg["datasets"]["validation"] = {"dataset": []}
-    result["omnicam"] = data_train_run(device, cfg, NRS_LAUNCHES, "Image train_omnicam.yaml")
+    result["omnicam"] = data_train_run(device, omnicam_train_config(omni), NRS_LAUNCHES,
+                                       "Image train_omnicam.yaml")
 
     cfg = copy.deepcopy(DDAD)
     cfg["arch"]["max_epochs"] = 1
@@ -1832,6 +1846,460 @@ def data_phase(device):
     result["ddad_two_cameras"] = two
     result["seconds"] = time.perf_counter() - t_phase
     log(f"phase 7 took {result['seconds']:.1f} s")
+    return result
+
+
+# Phase 8: multi-process training and evaluation. Two ranks share the one
+# card over gloo where the machine has one (NCCL refuses two ranks on one
+# card); NCCL with a card a rank where it has two or more.
+DIST_TIMEOUT = 300
+# the one-sided SIGTERM: phase 6's recipe at repeat [DRAIN_REPEAT], so that
+# each of two ranks has 2 * DRAIN_REPEAT steps an epoch; rank 1 is signalled
+# DRAIN_DELAY s after it printed its model
+DRAIN_REPEAT, DRAIN_DELAY = 12, 1.5
+# The first train_kitti.yaml step on two ranks of four rows against one rank
+# on the eight: the mean of the ranks' losses relative, as the card against
+# the CPU in bfloat16 (convolutions of another batch may take another
+# algorithm), the gradient's cosine as phase 6's update cosine. Adam's first
+# update is about lr * sign(g), and a bfloat16 weight gradient summed over
+# two halves of 4 rows rounds otherwise than one over 8, so near-zero
+# gradients flip sign: the update's cosine (TOL_UPDATE_COS) is held against
+# one rank that takes the 8 rows as the two ranks split them (two halves,
+# each with the flip the ranks draw, gradients averaged), and reported
+# against one rank on the 8 rows at once.
+TOL_DIST_LOSS = TOL_LOSS_CPU_BF16
+WORLD1_STEPS = 12
+
+
+def torchrun(nproc, args, log_dir=None):
+    """Start ``torch.distributed.run --standalone`` of ``nproc`` ranks on
+    ``args`` in a session of its own (``finish`` kills it whole)."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc)]
+    if log_dir is not None:
+        cmd += ["--log-dir", str(log_dir), "--redirects", "3"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(cmd + [str(a) for a in args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def finish(proc, label, timeout=DIST_TIMEOUT, check=True):
+    """Wait for a launch; kill every process of it after ``timeout`` s.
+    Its output goes to build/chip_smoke_dist/<label>.log; returns (rc, output)."""
+    import os
+    import signal
+
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{label}: no end in {timeout} s\n{out[-3000:]}")
+    (ROOT / "build" / "chip_smoke_dist" / f"{label}.log").write_text(out)
+    if check and proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{out[-3000:]}")
+    return proc.returncode, out
+
+
+def dist_job(nproc, label, **job):
+    """``chip_smoke.py --worker`` on ``nproc`` ranks for one job; returns
+    each rank's result."""
+    root = ROOT / "build" / "chip_smoke_dist"
+    path = root / f"{label}.json"
+    path.write_text(json.dumps(dict(job, out=str(root), label=label)))
+    t0 = time.perf_counter()
+    finish(torchrun(nproc, [ROOT / "chip_smoke.py", "--worker", path]), label)
+    results = [json.loads((root / f"{label}_rank{r}.json").read_text()) for r in range(nproc)]
+    log(f"{label}: {nproc} ranks in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def rank_logs(log_dir):
+    return {int(p.parent.name): p.read_text() for p in log_dir.rglob("stdout.log")}
+
+
+def kitti_train_config(root, checkpoint=None):
+    """configs/train_kitti.yaml as written, on phase 7's KITTI tree, one
+    epoch (its repeat [2]: 12 steps on one rank)."""
+    import copy
+
+    from packnet_sfm_tpu_torch.core.config import KITTI
+
+    cfg = copy.deepcopy(KITTI)
+    cfg["arch"]["max_epochs"] = 1
+    cfg["checkpoint"] = checkpoint or {}
+    cfg["datasets"]["train"].update(path=[str(root)], split=["train.txt"])
+    cfg["datasets"]["validation"].update(path=[str(root)], split=["val.txt", "test_a.txt"])
+    cfg["datasets"]["test"].update(path=[str(root)], split=["test.txt"])
+    return cfg
+
+
+def omnicam_train_config(folder):
+    """configs/train_omnicam.yaml as written on phase 7's image folder, one
+    epoch, its validation split dropped (it has no depth, and a fit
+    validates each epoch)."""
+    import copy
+
+    from packnet_sfm_tpu_torch.core.config import OMNICAM
+
+    cfg = copy.deepcopy(OMNICAM)
+    cfg["arch"]["max_epochs"] = 1
+    cfg["datasets"]["train"]["path"] = cfg["datasets"]["test"]["path"] = [str(folder)]
+    cfg["datasets"]["validation"] = {"dataset": []}
+    return cfg
+
+
+def kitti_eval_config(root, batch_size=4):
+    """configs/eval_kitti.yaml on phase 7's KITTI tree, writing nothing."""
+    import copy
+
+    from packnet_sfm_tpu_torch.core.config import EVAL_KITTI
+
+    ecfg = copy.deepcopy(EVAL_KITTI)
+    ecfg["datasets"]["test"].update(path=[str(root)], split=["test.txt"],
+                                    batch_size=batch_size)
+    ecfg["save"] = {"folder": ""}
+    return ecfg
+
+
+def first_kitti_step(device, rows=slice(0, 8), halves=False):
+    """The first train_kitti.yaml step (bfloat16, flip drawn from arch.seed
+    + 1 as the trainer draws it) on ``rows`` of the global batch of 8 noise
+    frames at 192x640, or with ``halves`` on the 8 rows as two ranks of 4
+    take them (each half with the same flip draw, gradients averaged, one
+    Adam step): (loss, the weights' update and gradient flattened on the
+    card, launch counts)."""
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.core.config import KITTI, config_from_dict
+    from packnet_sfm_tpu_torch.engine.factory import compute_dtype, make_optimizer, setup_model
+    from packnet_sfm_tpu_torch.engine.train import (
+        cast_batch,
+        make_train_step,
+        prepare_train_batch,
+        zero_metrics,
+    )
+    from packnet_sfm_tpu_torch.models.sfm import model_loss
+    from packnet_sfm_tpu_torch.parallel.scaling import synthetic_batch
+
+    cfg = config_from_dict(KITTI)
+    dtype = compute_dtype(cfg)
+    model = setup_model(cfg.model, device=device, seed=cfg.arch.seed, dtype=dtype)
+    optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, 1000)
+    batch = synthetic_batch(np.random.default_rng(8), 8, 192, 640)
+
+    def take(part):
+        return {k: [c[part] for c in v] if isinstance(v, list) else v[part]
+                for k, v in batch.items()}
+    before = torch.cat([p.detach().flatten() for p in model.parameters()])
+    reset_counts()
+    if halves:
+        losses = []
+        for half in (slice(0, 4), slice(4, 8)):
+            loss, _ = model_loss(model, cast_batch(prepare_train_batch(take(half), device), dtype),
+                                 num_scales=KITTI_SCALES,
+                                 generator=torch.Generator().manual_seed(cfg.arch.seed + 1))
+            (loss.float() / 2).backward()
+            losses.append(float(loss))
+        optimizer.step()
+        loss = statistics.mean(losses)
+    else:
+        step = make_train_step(model, optimizer, scheduler, KITTI_SCALES, compute_dtype=dtype,
+                               generator=torch.Generator().manual_seed(cfg.arch.seed + 1))
+        loss = float(step(zero_metrics(device), take(rows), 0.0)["loss"][0])
+    counts = read_counts()
+    update = torch.cat([p.detach().flatten() for p in model.parameters()]) - before
+    grad = torch.cat([p.grad.flatten() for p in model.parameters()])
+    return loss, update, grad, counts
+
+
+def cosine(a, b):
+    return float((a.double() @ b.double()) / (a.double().norm() * b.double().norm()))
+
+
+def dist_worker(job_path):
+    """One rank of a phase 8 job (``chip_smoke.py --worker <job.json>``,
+    started by ``torch.distributed.run``); writes <label>_rank<r>.json."""
+    import os
+
+    import torch
+
+    from packnet_sfm_tpu_torch.parallel import mesh
+
+    job = json.loads(pathlib.Path(job_path).read_text())
+    out, label, kind = pathlib.Path(job["out"]), job["label"], job["kind"]
+    rank = int(os.environ.get("RANK", "0"))
+    (out / f"{label}_rank{rank}.pid").write_text(str(os.getpid()))
+    res = {"rank": rank}
+    if kind == "plain_step":
+        # no process group: the step without DDP, in a process of its own
+        from packnet_sfm_tpu_torch.parallel.scaling import time_steps
+
+        dt = time_steps(None, torch.device("cuda"), 4, 192, 640, WORLD1_STEPS, 3)
+        res.update(step_ms=dt / WORLD1_STEPS * 1e3)
+        (out / f"{label}_rank{rank}.json").write_text(json.dumps(res))
+        return 0
+    if kind == "nccl_one_card":
+        # NCCL with every rank on card 0: it should refuse at the first collective
+        try:
+            mesh.init_distributed("nccl", "cuda:0")
+            t = torch.ones(1, device="cuda:0")
+            torch.distributed.all_reduce(t)
+            torch.cuda.synchronize()
+            res.update(refused=False)
+        except Exception as e:          # what NCCL says is the result
+            res.update(refused=True, error=f"{type(e).__name__}: {e}")
+        (out / f"{label}_rank{rank}.json").write_text(json.dumps(res))
+        os._exit(0)                     # the failed communicator is not torn down
+    device = mesh.init_distributed(job["backend"], job["device"])
+    res.update(world=mesh.process_count(), backend=torch.distributed.get_backend(),
+               device=str(device))
+    if kind == "steps":
+        from packnet_sfm_tpu_torch.cli.eval import evaluate
+        from packnet_sfm_tpu_torch.cli.train import train
+
+        world = mesh.process_count()
+        per = 8 // world
+        loss, update, grad, counts = first_kitti_step(device, slice(per * rank, per * (rank + 1)))
+        if rank == 0:
+            torch.save(dict(update=update.cpu(), grad=grad.cpu()), out / "kitti_step_2rank.pt")
+        res["kitti_step"] = dict(loss=loss, launches=counts)
+        del update, grad
+        torch.cuda.empty_cache()
+        reset_counts()
+        trainer = train(job["omnicam"], distributed=True, device=job["device"],
+                        backend=job["backend"])
+        h = trainer.history[-1]
+        res["omnicam"] = dict(steps=trainer.step, launches=read_counts(), loss=h["loss"],
+                              imgs_per_sec=h["imgs_per_sec"], seconds=h["seconds"])
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        (table,) = evaluate(job["eval_ckpt"], job["eval_config"], device=job["device"])
+        res["eval"] = dict(table={m: [float(x) for x in v] for m, v in table.items()},
+                           seconds=time.perf_counter() - t0, launches=read_counts())
+    elif kind in ("drain", "resume"):
+        from packnet_sfm_tpu_torch.cli.train import train
+
+        reset_counts()
+        trainer = train(job["file"], distributed=True, device=job["device"],
+                        backend=job["backend"])
+        res.update(steps=trainer.step, history=trainer.history, launches=read_counts(),
+                   preempted=trainer._preempt_requested)
+    (out / f"{label}_rank{rank}.json").write_text(json.dumps(res))
+    mesh.shutdown()
+    return 0
+
+
+def drain_and_resume(cfg, steps_per_epoch, backend, device):
+    """``cli.train.train(cfg, distributed=True)`` on two ranks, SIGTERM to
+    rank 1 alone DRAIN_DELAY s after it printed its model; both must drain
+    at one step of epoch 0 and rank 0 write preempt_epoch=00.ckpt, whose
+    two-rank resume must finish the epoch. Returns the numbers."""
+    import os
+    import signal
+
+    root = ROOT / "build" / "chip_smoke_dist"
+    cfg = dict(cfg, arch=dict(cfg["arch"], preempt_sync_every=4))
+    ckpt_dir = pathlib.Path(cfg["checkpoint"]["filepath"])
+    job = root / "drain.json"
+    job.write_text(json.dumps(dict(kind="drain", file=cfg, backend=backend, device=device,
+                                   out=str(root), label="drain")))
+    proc = torchrun(2, [ROOT / "chip_smoke.py", "--worker", job], log_dir=root / "drain_logs")
+    deadline, signalled = time.time() + DIST_TIMEOUT, False
+    while time.time() < deadline and proc.poll() is None:
+        if "Initialized model" in rank_logs(root / "drain_logs").get(1, ""):
+            time.sleep(DRAIN_DELAY)
+            os.kill(int((root / "drain_rank1.pid").read_text()), signal.SIGTERM)
+            signalled = True
+            break
+        time.sleep(0.1)
+    finish(proc, "drain", timeout=max(deadline - time.time(), 1))
+    drained = [json.loads((root / f"drain_rank{r}.json").read_text()) for r in range(2)]
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+    log(f"SIGTERM to rank 1 alone: both ranks drained at steps {[d['steps'] for d in drained]} "
+        f"of {steps_per_epoch}, preempted {[d['preempted'] for d in drained]}; checkpoints "
+        f"{ckpts}")
+    if not (signalled and drained[0]["steps"] == drained[1]["steps"] < steps_per_epoch
+            and all(d["preempted"] for d in drained) and ckpts == ["preempt_epoch=00.ckpt"]):
+        raise AssertionError(f"the drain: {drained}, {ckpts}")
+    resumed = dist_job(2, "resume", kind="resume", file=str(ckpt_dir / ckpts[0]),
+                       backend=backend, device=device)
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+    hist = [r["history"] for r in resumed]
+    log(f"resume on 2 ranks: epochs {[[e['epoch'] for e in h] for h in hist]}, steps "
+        f"{[r['steps'] for r in resumed]}, loss {hist[0][-1]['loss']:.5f}; checkpoints {ckpts}")
+    if not (all([e["epoch"] for e in h] == [0] for h in hist)
+            and all(r["steps"] == drained[0]["steps"] + steps_per_epoch for r in resumed)
+            and any(c.startswith("epoch=00_") for c in ckpts)):
+        raise AssertionError(f"the resume: {resumed}")
+    return dict(steps=[d["steps"] for d in drained], of=steps_per_epoch,
+                launches=[d["launches"] for d in drained],
+                resume_steps=[r["steps"] for r in resumed], resume_loss=hist[0][-1]["loss"],
+                resume_launches=[r["launches"] for r in resumed])
+
+
+def distributed_phase(device, data):
+    """Phase 8 (see the module docstring); returns its numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.parallel.scaling import measure_scaling
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    trees = ROOT / "build" / "chip_smoke_data"
+    kitti_root, omni = trees / "KITTI_raw", trees / "omnicam"
+    cards = torch.cuda.device_count()
+    backend, two_device = ("nccl", "cuda") if cards >= 2 else ("gloo", "cuda:0")
+    ranks_per_card = 1 if cards >= 2 else 2
+    result = dict(cards=cards, backend=backend, ranks_per_card=ranks_per_card,
+                  note=("two ranks on one card over gloo: correctness runs, not speed figures"
+                        if ranks_per_card > 1 else "one card a rank over NCCL"))
+    log(f"phase 8: {cards} card(s): two ranks over {backend}, {ranks_per_card} a card")
+
+    # 1. world 1 over NCCL through the CLI: phase 7's train_kitti.yaml run again
+    cfg = kitti_train_config(kitti_root)
+    try:
+        import yaml  # noqa: F401 (the CLI reads the config with it)
+
+        path = root / "train_kitti.yaml"
+        path.write_text(json.dumps(cfg))           # JSON is YAML
+        t0 = time.perf_counter()
+        _, out = finish(torchrun(1, ["-m", "packnet_sfm_tpu_torch.cli.train", path,
+                                     "--distributed"]), "world1_cli")
+        history = json.loads(out.strip().splitlines()[-1])["history"]
+        entry = "python -m torch.distributed.run --standalone --nproc_per_node 1 " \
+                "-m packnet_sfm_tpu_torch.cli.train train_kitti.yaml --distributed"
+    except ImportError:
+        t0 = time.perf_counter()
+        (res,) = dist_job(1, "world1_train", kind="drain", file=cfg, backend=None,
+                          device="cuda")
+        history, entry = res["history"], "cli.train.train(config, distributed=True), 1 rank"
+    world1_s = time.perf_counter() - t0
+    h, ref = history[-1], data["kitti"]
+    loss_rel = abs(h["loss"] - ref["loss"]) / abs(ref["loss"])
+    table_diff = max(abs(v["depth_gt"][0] - r["depth_gt"]) for v, r in zip(h["val"], ref["val"]))
+    log(f"world 1 over NCCL ({entry}): {world1_s:.1f} s; loss {h['loss']:.6f} against phase 7's "
+        f"{ref['loss']:.6f} without --distributed (rel {loss_rel:.2e}, tolerance "
+        f"{TOL_RESUME_LOSS:g}); depth_gt abs_rel differs by {table_diff:.2e} (tolerance "
+        f"{TOL_PROTOCOL:g}); {h['imgs_per_sec']:.2f} imgs/s over the epoch (phase 7: "
+        f"{ref['imgs_per_sec']:.2f})")
+    if not (loss_rel <= TOL_RESUME_LOSS and table_diff <= TOL_PROTOCOL):
+        raise AssertionError("world 1 over NCCL differs from the run without --distributed")
+    result["world1_cli"] = dict(entry=entry, seconds=world1_s, loss=h["loss"],
+                                loss_rel_to_plain=loss_rel, val_abs_rel_diff=table_diff,
+                                imgs_per_sec=h["imgs_per_sec"],
+                                plain_imgs_per_sec=ref["imgs_per_sec"])
+
+    # 2. the step plain and with DDP over NCCL at world 1 (parallel/scaling.py),
+    # in turns, each in a fresh process: plain, DDP, plain
+    plain, ddp, scaling = [], [], None
+    for turn in ("plain", "ddp", "plain"):
+        if turn == "plain":
+            job = root / "plain_step.json"
+            job.write_text(json.dumps(dict(kind="plain_step", out=str(root), label="plain_step")))
+            finish(subprocess.Popen([sys.executable, ROOT / "chip_smoke.py", "--worker", job],
+                                    cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True, start_new_session=True), "plain_step")
+            plain.append(json.loads((root / "plain_step_rank0.json").read_text())["step_ms"])
+        else:
+            scaling = measure_scaling(per_rank_batch=4, steps=WORLD1_STEPS, warmup=3,
+                                      timeout=DIST_TIMEOUT)
+            ddp.append(scaling[0]["step_ms"])
+    ratio = statistics.mean(ddp) / statistics.mean(plain)
+    log(f"train_kitti.yaml step at batch 4, 192x640, bfloat16, {WORLD1_STEPS} steps after 3, "
+        f"each in a fresh process: plain {plain[0]:.2f} ms, DDP over NCCL at world 1 "
+        f"{ddp[0]:.2f} ms, plain {plain[1]:.2f} ms (DDP / plain {ratio:.3f}); scaling at the "
+        f"world sizes this machine has cards for: {scaling}")
+    result["world1_step"] = dict(plain_ms=plain, ddp_ms=ddp, ddp_over_plain=ratio,
+                                 steps=WORLD1_STEPS)
+    result["scaling"] = scaling
+
+    # 3. NCCL with two ranks on one card
+    if ranks_per_card > 1:
+        refused = dist_job(2, "nccl_one_card", kind="nccl_one_card")
+        errors = [r.get("error", "") for r in refused]
+        said = " | ".join(e.splitlines()[-1] if e else "" for e in errors)
+        log(f"NCCL, two ranks on card 0: refused by {sum(r['refused'] for r in refused)} of 2: "
+            f"{said}")
+        if not all(r["refused"] for r in refused):
+            raise AssertionError("NCCL took two ranks on one card")
+        result["nccl_one_card"] = [e.split("Last error:")[-1].strip() for e in errors]
+
+    # 4. two ranks: the first train_kitti.yaml step, train_omnicam.yaml, eval_kitti.yaml
+    (ckpt,) = sorted((trees / "kitti_ckpt").iterdir())
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = dist_job(2, "two_ranks", kind="steps", backend=backend, device=two_device,
+                     omnicam=omnicam_train_config(omni), eval_ckpt=str(ckpt),
+                     eval_config=kitti_eval_config(kitti_root))
+    two = {k: v.to(device) for k, v in torch.load(root / "kitti_step_2rank.pt").items()}
+    (root / "kitti_step_2rank.pt").unlink()
+    loss1, update1, grad1, counts1 = first_kitti_step(device)
+    cos_whole, grad_cos = cosine(update1, two["update"]), cosine(grad1, two["grad"])
+    del update1, grad1
+    loss_h, update_h, grad_h, _ = first_kitti_step(device, halves=True)
+    cos, grad_cos_h = cosine(update_h, two["update"]), cosine(grad_h, two["grad"])
+    del update_h, grad_h, two
+    torch.cuda.empty_cache()
+    loss2 = statistics.mean(r["kitti_step"]["loss"] for r in ranks)
+    loss_rel = abs(loss2 - loss1) / abs(loss1)
+    step_counts = [r["kitti_step"]["launches"] for r in ranks]
+    log(f"train_kitti.yaml first step, 2 ranks x 4 rows against 1 rank x 8: loss {loss2:.6f} "
+        f"against {loss1:.6f} (rel {loss_rel:.2e}, tolerance {TOL_DIST_LOSS:g}), gradient "
+        f"cosine {grad_cos:.6f} (at least {TOL_UPDATE_COS}), update cosine {cos_whole:.6f}; "
+        f"against 1 rank taking the 8 rows in the ranks' two halves: loss {loss_h:.6f}, "
+        f"gradient cosine {grad_cos_h:.6f}, update cosine {cos:.6f} (both at least "
+        f"{TOL_UPDATE_COS}); launches by rank {step_counts}, one rank {counts1}")
+    if not (loss_rel <= TOL_DIST_LOSS and min(grad_cos, grad_cos_h, cos) >= TOL_UPDATE_COS):
+        raise AssertionError("two ranks' first kitti step differs from one rank's")
+    if any(c != {k: FLAGSHIP_LAUNCHES.get(k, 0) for k in c} for c in step_counts + [counts1]):
+        raise AssertionError(f"kitti step launches: {step_counts}, {counts1}")
+    omni_runs = [r["omnicam"] for r in ranks]
+    for r in omni_runs:
+        want = {k: NRS_LAUNCHES.get(k, 0) * r["steps"] for k in r["launches"]}
+        if r["launches"] != want or not np.isfinite(r["loss"]) or r["steps"] < 1:
+            raise AssertionError(f"omnicam on two ranks: {omni_runs}")
+    log(f"train_omnicam.yaml on 2 ranks: steps {[r['steps'] for r in omni_runs]}, loss "
+        f"{omni_runs[0]['loss']:.5f} (every rank: {[r['loss'] for r in omni_runs]}), launches by "
+        f"rank {[r['launches'] for r in omni_runs]}")
+    if len({r["loss"] for r in omni_runs}) != 1:
+        raise AssertionError("the ranks' epoch losses differ: the metric sums were not reduced")
+    tables = [r["eval"]["table"] for r in ranks]
+    one = data["kitti"]["eval_table_b4"]
+    diff = max(abs(a - b) for t in tables for m in one for a, b in zip(t[m], one[m]))
+    log(f"eval_kitti.yaml on 2 ranks: {ranks[0]['eval']['seconds']:.1f} s; max |table - 1 rank's "
+        f"(phase 7, B=4)| {diff:.3e} (tolerance {TOL_PROTOCOL:g}); launches "
+        f"{[r['eval']['launches'] for r in ranks]}")
+    if not diff <= TOL_PROTOCOL or any(any(r["eval"]["launches"].values()) for r in ranks):
+        raise AssertionError("eval on two ranks differs from one rank")
+    result["two_ranks"] = dict(
+        kitti_first_step=dict(loss_2rank=loss2, loss_1rank=loss1, loss_rel=loss_rel,
+                              grad_cosine=grad_cos, update_cosine_1rank_whole=cos_whole,
+                              loss_1rank_halves=loss_h, grad_cosine_1rank_halves=grad_cos_h,
+                              update_cosine=cos, launches=step_counts),
+        omnicam=omni_runs, eval=dict(max_abs_diff_to_1rank=diff,
+                                     seconds=ranks[0]["eval"]["seconds"],
+                                     launches=[r["eval"]["launches"] for r in ranks]))
+
+    # 5. the one-sided SIGTERM, the drain and a two-rank resume
+    cfg = train_config(root / "drain_ckpt", max_epochs=1)
+    cfg["datasets"]["train"]["repeat"] = [DRAIN_REPEAT]
+    result["drain"] = drain_and_resume(cfg, 2 * DRAIN_REPEAT, backend, two_device)
+    shutil.rmtree(root / "drain_ckpt", ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 8 took {result['seconds']:.1f} s")
     return result
 
 
@@ -1892,6 +2360,9 @@ def main():
     trained = train_phase(device)
     torch.cuda.empty_cache()
     data = data_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = distributed_phase(device, data)
 
     # each kernel's launches are those of the train path it belongs to, as
     # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
@@ -1929,11 +2400,20 @@ def main():
         # the launches of the real-format runs of phase 7
         entry["data_launches"] = {run: data[run]["launches"][name]
                                   for run in ("kitti", "omnicam", "ddad", "ddad_two_cameras")}
+        # phase 8's, by rank
+        two = dist["two_ranks"]
+        entry["distributed_launches"] = {
+            "train_kitti_first_step": [c[name] for c in two["kitti_first_step"]["launches"]],
+            "train_omnicam": [r["launches"][name] for r in two["omnicam"]],
+            "eval_kitti": [c[name] for c in two["eval"]["launches"]],
+            "drain": [c[name] for c in dist["drain"]["launches"]],
+            "resume": [c[name] for c in dist["drain"]["resume_launches"]]}
         kernels.append(entry)
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"data": data}))
+    print(json.dumps({"distributed": dist}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -1942,4 +2422,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

@@ -13,7 +13,9 @@ the model with the bfloat16 compute dtype, as eval's ``--half`` does (the
 JAX CLI's ``--half`` builds a float32 model and only rounds the image to
 bfloat16, so it computes in float32: ``ROADMAP.md`` §3 (i)). Without it the
 model computes in float32, whatever the checkpoint's config says, as in the
-JAX CLI.
+JAX CLI. Where a process group is initialized (``parallel/mesh.
+init_distributed``), each process infers its share of the files,
+``files[rank::world]``, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ def infer_and_save(checkpoint, inp, out, image_shape=None, half=False, save=None
     from packnet_sfm_tpu_torch.engine.checkpoint import restore_checkpoint
     from packnet_sfm_tpu_torch.engine.factory import setup_model
     from packnet_sfm_tpu_torch.engine.trainer import save_side_by_side
+    from packnet_sfm_tpu_torch.parallel.mesh import process_count, process_index
     from packnet_sfm_tpu_torch.utils.save import write_depth
 
     with open(os.path.join(checkpoint, "meta.json")) as f:
@@ -81,8 +84,8 @@ def infer_and_save(checkpoint, inp, out, image_shape=None, half=False, save=None
         outs = [os.path.join(out, os.path.basename(f)) for f in files]
     else:
         files, outs = [inp], [out]
-    # this process's share of the files; one process until ROADMAP.md §1 item 5
-    rank, world = 0, 1
+    # this process's share of the files, where a process group is initialized
+    rank, world = process_index(), process_count()
     files, outs = files[rank::world], outs[rank::world]
 
     for f, o in zip(files, outs):

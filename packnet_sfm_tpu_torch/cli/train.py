@@ -1,7 +1,7 @@
 """Train CLI (port of ``packnet_sfm_tpu/cli/train.py``)::
 
     python -m packnet_sfm_tpu_torch.cli.train <config.yaml | checkpoint dir>
-        [--profile-dir <dir>] [--device cuda|cpu]
+        [--profile-dir <dir>] [--device cuda|cpu] [--distributed]
 
 One positional argument: a yaml config for a fresh run, or a checkpoint
 directory to resume (its meta.json holds the config; the model, optimizer,
@@ -12,7 +12,18 @@ is ``{"history": [...]}``, one record an epoch (``Trainer.fit``'s: loss,
 images/s, train and validation seconds, peak MiB on the card, the metric
 tables). ``train`` also takes the config as a dict (merged over the
 defaults), for hosts without PyYAML.
-``--distributed`` (multi-process training) is not ported yet and raises.
+
+``--distributed`` trains with one process a rank, launched by
+``torch.distributed.run``, which sets RANK, WORLD_SIZE and LOCAL_RANK::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m packnet_sfm_tpu_torch.cli.train <config> --distributed
+
+Rank r trains on ``cuda:LOCAL_RANK`` over NCCL, and raises where that card
+is not there; ``--device cpu`` trains on the CPU over gloo. ``batch_size``
+is each rank's: the global batch is N times it. The last line is printed
+by rank 0. (NCCL refuses two ranks on one card; ``train(...,
+device="cuda:0", backend="gloo")`` puts them there.)
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ def parse_args(argv=None):
     parser.add_argument("file", type=str,
                         help="yaml config for a fresh run, or .ckpt dir to resume")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training (not ported yet)")
+                        help="one process a rank, under torch.distributed.run")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of epoch 1 there")
     parser.add_argument("--device", type=str, default="cuda")
@@ -65,21 +76,29 @@ def build_trainer(file, profile_dir=None, device="cuda"):
     return trainer
 
 
-def train(file, distributed: bool = False, profile_dir=None, device="cuda"):
+def train(file, distributed: bool = False, profile_dir=None, device="cuda", backend=None):
     """Train from a yaml path, a config dict or a checkpoint directory;
-    returns the ``Trainer`` after ``fit``."""
+    returns the ``Trainer`` after ``fit``. ``distributed`` joins the
+    process group first (``parallel/mesh.init_distributed``: this rank's
+    card, or the CPU) unless this process has joined one already."""
     if distributed:
-        raise NotImplementedError(
-            "--distributed (multi-process training) is not ported yet; see ROADMAP.md §1 item 5")
+        from packnet_sfm_tpu_torch.parallel.mesh import init_distributed
+
+        device = init_distributed(backend, device)
     trainer = build_trainer(file, profile_dir, device)
     trainer.fit()
     return trainer
 
 
 def main(argv=None):
+    from packnet_sfm_tpu_torch.parallel.mesh import process_index, shutdown
+
     args = parse_args(argv)
     trainer = train(args.file, args.distributed, args.profile_dir, args.device)
-    print(json.dumps({"history": trainer.history}))
+    if process_index() == 0:
+        print(json.dumps({"history": trainer.history}))
+    if args.distributed:
+        shutdown()
 
 
 if __name__ == "__main__":

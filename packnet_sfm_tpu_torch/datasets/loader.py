@@ -2,9 +2,8 @@
 ``packnet_sfm_tpu/datasets/loader.py`` (numpy; the same batches in the same
 order for the same dataset, seed and epoch).
 
-Each process loads only its shard (indices[process_index::process_count];
-one process, 0 of 1, until the multi-process slice, ROADMAP.md §1 item 5),
-worker threads prefetch decode and transform, and shuffling is seeded by
+Each process loads only its shard (indices[process_index::process_count],
+``setup_dataloader`` taking both from the process group), worker threads prefetch decode and transform, and shuffling is seeded by
 (seed, epoch). Eval loaders keep every sample: the last batch is padded by
 wrapping and 'pad_count' marks the pad rows. Batches are stacked numpy; the
 eval step moves them to the device.
@@ -310,7 +309,10 @@ def setup_dataloader(datasets, cfg, mode: str, seed: int = 42, aug_cfg=None):
     """DataLoaders for each dataset of a split. Train drops the last partial
     batch and applies the train transform of ``aug_cfg``; validation and
     test see every sample (the last batch is padded by wrapping and the pad
-    rows are masked downstream)."""
+    rows are masked downstream). Each process loads its shard of every
+    split (``parallel/mesh.process_index``, ``process_count``)."""
+    from packnet_sfm_tpu_torch.parallel.mesh import process_count, process_index
+
     transform = make_transform("train", aug_cfg, seed) if mode == "train" else _as_loaded
     return [
         DataLoader(
@@ -320,6 +322,8 @@ def setup_dataloader(datasets, cfg, mode: str, seed: int = 42, aug_cfg=None):
             seed=seed,
             drop_last=(mode == "train"),
             num_workers=cfg.get("num_workers", 8),
+            process_index=process_index(),
+            process_count=process_count(),
             transform=transform,
         )
         for d in datasets

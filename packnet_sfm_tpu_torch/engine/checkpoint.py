@@ -12,6 +12,13 @@ A checkpoint is a directory of two files:
 ``ModelCheckpoint`` keeps the top k of them by a monitored metric;
 ``load_network`` and ``load_pretrained_encoder`` are the init-time partial
 loads.
+
+With more than one process, every process calls ``save_checkpoint`` and
+``ModelCheckpoint.check_and_save`` at the same point: rank 0 writes (and
+deletes a checkpoint pushed out of the top k) between two barriers, and
+every rank takes rank 0's monitored value, so that all of them make its
+decision and name its path. Reading (``restore_checkpoint``,
+``load_network``) runs on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import shutil
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from packnet_sfm_tpu_torch.parallel.mesh import barrier, broadcast_object, process_index
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
@@ -72,9 +81,9 @@ class ModelCheckpoint:
                        metrics: Dict[str, float], **train_state) -> Optional[str]:
         """Save if within the top k by the monitored metric; returns the
         path or None. ``train_state`` goes to ``save_checkpoint`` (step,
-        optimizer, scheduler, generator)."""
+        optimizer, scheduler, generator). Every rank takes rank 0's value."""
         self.check_monitor(metrics)
-        value = float(metrics[self.monitor])
+        value = broadcast_object(float(metrics[self.monitor]))
         if self.save_top_k > 0 and len(self._saved) >= self.save_top_k:
             worst = self._saved[-1][0]
             if not self._is_better(value, worst):
@@ -86,7 +95,8 @@ class ModelCheckpoint:
         self._saved.sort(key=lambda kv: kv[0], reverse=(self.mode == "max"))
         while self.save_top_k > 0 and len(self._saved) > self.save_top_k:
             _, old = self._saved.pop()
-            shutil.rmtree(old, ignore_errors=True)
+            if process_index() == 0:
+                shutil.rmtree(old, ignore_errors=True)
         return path
 
 
@@ -94,8 +104,19 @@ def save_checkpoint(path: str, model: torch.nn.Module, config: Dict, epoch: int,
                     monitor_value: float = 0.0, step: int = 0,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     scheduler=None, generator: Optional[torch.Generator] = None) -> str:
-    """Write a checkpoint directory, replacing one already at ``path``."""
+    """Write a checkpoint directory, replacing one already at ``path``: on
+    rank 0, while every rank waits at a barrier before and after it."""
     path = os.path.abspath(path)
+    barrier()
+    if process_index() == 0:
+        _write_checkpoint(path, model, config, epoch, monitor_value, step, optimizer,
+                          scheduler, generator)
+    barrier()
+    return path
+
+
+def _write_checkpoint(path, model, config, epoch, monitor_value, step, optimizer, scheduler,
+                      generator):
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
@@ -111,7 +132,6 @@ def save_checkpoint(path: str, model: torch.nn.Module, config: Dict, epoch: int,
             "step": int(step)}
     with open(os.path.join(path, META_FILE), "w") as f:
         json.dump(meta, f, indent=2, default=str)
-    return path
 
 
 def read_state(path: str) -> Dict:

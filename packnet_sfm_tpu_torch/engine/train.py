@@ -16,10 +16,12 @@ float32. The eval step casts nothing: the model casts inside.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from torch.profiler import record_function
 
@@ -28,7 +30,13 @@ from packnet_sfm_tpu_torch.engine.metrics import (
     compute_depth_metrics_per_sample,
     post_process_inv_depth,
 )
-from packnet_sfm_tpu_torch.models.sfm import SfmModelDef, model_forward, model_loss
+from packnet_sfm_tpu_torch.models.sfm import (
+    DEPTH_SCALES,
+    SfmModelDef,
+    model_forward,
+    model_loss,
+    scales_used,
+)
 from packnet_sfm_tpu_torch.ops.image import flip_lr
 from packnet_sfm_tpu_torch.ops.jitter import apply_jitter
 
@@ -109,6 +117,20 @@ def cast_batch(batch: Dict, dtype) -> Dict:
             for k, v in batch.items()}
 
 
+class _LossModule(torch.nn.Module):
+    """``model_loss`` as a module's forward, so that the forward that
+    ``DistributedDataParallel`` wraps is the one whose graph backward
+    walks."""
+
+    def __init__(self, model: SfmModelDef):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch: Dict, progress: float, num_scales: Optional[int], generator):
+        return model_loss(self.model, batch, progress=progress, num_scales=num_scales,
+                          generator=generator)
+
+
 def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, scheduler=None,
                     num_scales: Optional[int] = None, grad_accum: int = 1,
                     generator: Optional[torch.Generator] = None,
@@ -124,8 +146,25 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     ``compute_dtype`` other than float32 casts the prepared batch's images
     to it (``cast_batch``); the model must have been built with it. The
     loss is float32 either way.
+
+    In a process group (``parallel/mesh.init_distributed``, even of one
+    rank) each rank steps on its own rows of the global batch and the
+    gradient is the global batch's mean: ``DistributedDataParallel``
+    averages it across the ranks after the last microbatch (``no_sync`` on
+    the others), with the buffers left alone (the BatchNorm statistics are
+    global already, so every rank moves them alike) and unused parameters
+    looked for only where the loss reads fewer scales than the depth
+    network makes (their gradient stays None, as on one rank). The flip's
+    generator, seeded alike on every rank, gives every rank the same draw.
     """
     device = next(model.parameters()).device
+    loss_module = _LossModule(model)
+    distributed = torch.distributed.is_initialized()
+    if distributed:
+        loss_module = DistributedDataParallel(
+            loss_module, device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False,
+            find_unused_parameters=scales_used(model, num_scales) < DEPTH_SCALES)
 
     def step(acc: Dict[str, torch.Tensor], batch: Dict, progress: float = 0.0):
         batch = prepare_train_batch(batch, device)
@@ -133,11 +172,13 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
             batch = cast_batch(batch, compute_dtype)
         optimizer.zero_grad(set_to_none=True)
         totals: Dict[str, torch.Tensor] = {}
-        parts = [batch] if grad_accum <= 1 else _microbatches(batch, grad_accum)
-        for part in parts:
-            loss, (metrics, _) = model_loss(model, part, progress=progress,
-                                            num_scales=num_scales, generator=generator)
-            (loss.float() / max(grad_accum, 1)).backward()
+        parts = [batch] if grad_accum <= 1 else list(_microbatches(batch, grad_accum))
+        for i, part in enumerate(parts):
+            # the ranks average their gradients once, after the last microbatch
+            defer = distributed and i < len(parts) - 1
+            with loss_module.no_sync() if defer else contextlib.nullcontext():
+                loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
+                (loss.float() / max(grad_accum, 1)).backward()
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
         optimizer.step()

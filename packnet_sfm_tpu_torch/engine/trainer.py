@@ -33,6 +33,24 @@ train split.
 ``arch.dtype: bfloat16`` builds the model with the bfloat16 compute dtype
 (``engine/factory.setup_model``) and the train steps cast their batches to
 it, as the JAX trainer does; evaluation casts nothing beyond the model.
+
+With more than one process (``parallel/mesh.init_distributed``; one
+device a rank, which the caller passes), every rank loads its shard of each
+split and steps on its rows of the global batch (``engine/train.
+make_train_step``), and the ranks agree where the JAX package's one global
+program agrees by construction:
+- the W&B logger runs on rank 0 only, and its run name, URL and checkpoint
+  path reach every rank before the checkpoint manager is built;
+- ``train_epoch`` asks every ``arch.preempt_sync_every`` batches (default
+  8) whether any rank was signalled, and ``fit`` once more at the epoch's
+  end, so that every rank drains at the same batch; the epoch's metric
+  sums are summed across ranks once an epoch, so 'loss' is the global
+  batch's ('imgs_per_sec' stays this rank's);
+- ``validate`` sums the metric rows and seen-counts across ranks before it
+  checks that every sample was seen;
+- checkpoints are written by rank 0 (``engine/checkpoint``), whose
+  decision and path every rank takes; the emergency save too;
+- the epoch line and the metric tables print on rank 0.
 """
 
 from __future__ import annotations
@@ -71,6 +89,13 @@ from packnet_sfm_tpu_torch.engine.train import (
 )
 from packnet_sfm_tpu_torch.losses.progressive import progressive_num_scales
 from packnet_sfm_tpu_torch.models.batch_utils import stack_multicam_batch
+from packnet_sfm_tpu_torch.parallel.mesh import (
+    all_reduce_host_sum,
+    any_process_flag,
+    broadcast_object,
+    process_count,
+    process_index,
+)
 
 _TRAIN_STATE_KEYS = ("optimizer", "scheduler", "generator")
 
@@ -114,7 +139,7 @@ class Trainer:
         self._preempt_requested = False
 
         self.logger = None
-        if not config.wandb.get("dry_run", True):
+        if process_index() == 0 and not config.wandb.get("dry_run", True):
             from packnet_sfm_tpu_torch.utils.wandb_logger import WandbLogger
 
             self.logger = WandbLogger(**config.wandb.to_dict())
@@ -131,6 +156,14 @@ class Trainer:
                     config.checkpoint.filepath = os.path.join(config.checkpoint.filepath,
                                                               run_name)
                 self.logger.log_config(config.to_dict())
+        if process_count() > 1:
+            # rank 0's run name and checkpoint path on every rank
+            names = broadcast_object(dict(name=config.get("name", ""),
+                                          wandb=dict(config.wandb.to_dict()),
+                                          filepath=config.checkpoint.get("filepath", "")))
+            config.name = names["name"]
+            config.wandb.update(names["wandb"])
+            config.checkpoint.filepath = names["filepath"]
 
     # ------------------------------------------------------------------ state
 
@@ -253,7 +286,9 @@ class Trainer:
         """One epoch over every train loader: the mean of each metric over
         the steps, 'imgs_per_sec', 'seconds' and, on the card, 'peak_mib'
         (the epoch's peak of allocated device memory). Stops at the first
-        batch boundary after a preemption request."""
+        batch boundary after a preemption request; with more than one
+        process, at the first agreed one (see the module docstring), and the
+        metric means are the global batch's."""
         self._setup_training()
         progress = epoch / max(self.max_epochs, 1)
         loss_cfg = self.config.model.loss
@@ -265,19 +300,27 @@ class Trainer:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        multi = process_count() > 1
+        sync_every = max(int(self.config.arch.get("preempt_sync_every", 8)), 1)
+        stop = False
         t0 = time.perf_counter()
         for loader in self.train_loaders:
-            for batch in loader.epoch(epoch):
-                if self._preempt_requested:
+            for bi, batch in enumerate(loader.epoch(epoch)):
+                # one small collective every sync_every batches keeps the
+                # ranks' drain at one batch boundary
+                stop = (bi % sync_every == 0 and any_process_flag(self._preempt_requested)
+                        if multi else self._preempt_requested)
+                if stop:
                     break
                 batch = stack_multicam_batch(batch)
                 acc = step_fn(acc, batch, progress)
                 self.step += 1
                 images += batch["rgb"].shape[0]
-            if self._preempt_requested:
+            if stop:
                 break
-        # one read of the device-side sums per epoch
-        sums = torch.stack([acc[k] for k in METRIC_KEYS]).cpu().numpy()
+        self._preempt_requested |= stop
+        # one read of the device-side sums per epoch, summed across processes
+        sums = all_reduce_host_sum(torch.stack([acc[k] for k in METRIC_KEYS]).cpu().numpy())
         dt = time.perf_counter() - t0
         avg = {k: float(v[0] / max(v[1], 1.0)) for k, v in zip(METRIC_KEYS, sums) if v[1] > 0}
         avg["imgs_per_sec"] = images / dt if dt > 0 else 0.0
@@ -294,11 +337,10 @@ class Trainer:
         - every sample is evaluated exactly once (loaders pad the last batch
           by wrapping; pad rows are masked out here on the host);
         - per-sample [B, 7] metric rows are scattered by dataset index;
-        - every index must be seen at least once, and the mean is taken over
-          rows / seen, so duplicates never skew the result.
-
-        With one process, the cross-process sum of rows and seen-counts is
-        the identity (multi-process eval comes with ROADMAP.md §1 item 5).
+        - rows and seen-counts are summed across processes, every index must
+          be seen at least once, and the mean is taken over rows / seen, so
+          duplicates (a pad row wrapped onto another process) never skew
+          the result.
         """
         loaders = loaders if loaders is not None else self.val_loaders
         results = []
@@ -337,6 +379,8 @@ class Trainer:
                     f"Eval dataset {di} yielded no ground-truth depth: check "
                     "the split's depth_type configuration (every batch was "
                     "missing the 'depth' key)")
+            reduced = all_reduce_host_sum({"rows": rows, "seen": seen})
+            rows, seen = reduced["rows"], reduced["seen"]
             if np.any(seen == 0):
                 raise AssertionError("Not all samples were seen during evaluation")
             results.append(
@@ -384,13 +428,15 @@ class Trainer:
 
     def _emergency_save(self, epoch: int) -> str:
         """Checkpoint the live state mid-run, recorded as epoch - 1, so that
-        ``cli.train <path>`` redoes the interrupted epoch."""
+        ``cli.train <path>`` redoes the interrupted epoch. Every process
+        calls it; rank 0 writes (``save_checkpoint``)."""
         ckpt_dir = (self.config.checkpoint.get("filepath")
                     or os.path.join(tempfile.gettempdir(), "packnet_sfm_preempt"))
         path = os.path.join(ckpt_dir, f"preempt_epoch={epoch:02d}.ckpt")
         save_checkpoint(path, self.model, self.config.to_dict(), epoch - 1,
                         **self._train_state())
-        print(f"### Preempted: saved {path}; resume with `cli.train {path}`", flush=True)
+        saved = f": saved {path}; resume with `cli.train {path}`" if process_index() == 0 else ""
+        print(f"### Preempted at step {self.step}{saved}", flush=True)
         return path
 
     def fit(self) -> List[Dict]:
@@ -404,7 +450,7 @@ class Trainer:
             if not self._state_ready:
                 self.init_state()
             if self.config.arch.get("validate_first"):
-                self.print_metrics(self.validate(0))
+                self._print_tables(self.validate(0))
             for epoch in range(self.current_epoch, max(self.max_epochs, self.min_epochs)):
                 if self._fit_epoch(epoch):
                     break
@@ -428,7 +474,10 @@ class Trainer:
             prof.export_chrome_trace(os.path.join(self.profile_dir, f"epoch_{epoch:03d}.json"))
         else:
             train_metrics = self.train_epoch(epoch)
-        if self._preempt_requested:
+        # agreed once more: a signal after the epoch's last check must not
+        # drain one process while the others validate
+        if any_process_flag(self._preempt_requested):
+            self._preempt_requested = True
             self._emergency_save(epoch)
             return True
         t0 = time.perf_counter()
@@ -436,10 +485,11 @@ class Trainer:
         val_seconds = time.perf_counter() - t0
         peak = (f" | peak {train_metrics['peak_mib']:.1f} MiB" if "peak_mib" in train_metrics
                 else "")
-        print(f"Epoch {epoch:03d} | loss {train_metrics.get('loss', 0):.4f} | "
-              f"{train_metrics['imgs_per_sec']:.1f} imgs/s | "
-              f"{train_metrics['seconds']:.1f} s train, {val_seconds:.1f} s validation{peak}")
-        self.print_metrics(val_metrics)
+        if process_index() == 0:
+            print(f"Epoch {epoch:03d} | loss {train_metrics.get('loss', 0):.4f} | "
+                  f"{train_metrics['imgs_per_sec']:.1f} imgs/s | "
+                  f"{train_metrics['seconds']:.1f} s train, {val_seconds:.1f} s validation{peak}")
+        self._print_tables(val_metrics)
         if self.logger is not None:
             logged = {f"train/{k}": v for k, v in train_metrics.items()}
             for di, res in enumerate(val_metrics):
@@ -467,10 +517,14 @@ class Trainer:
         save_folder = self.config.save.get("folder", "")
         results = self.validate(0, loaders=self.test_loaders,
                                 save_folder=save_folder or None)
-        self.print_metrics(results)
+        self._print_tables(results)
         return results
 
     # ---------------------------------------------------------------- output
+
+    def _print_tables(self, results: List[Dict]):
+        if process_index() == 0:
+            self.print_metrics(results)
 
     @staticmethod
     def print_metrics(results: List[Dict]):

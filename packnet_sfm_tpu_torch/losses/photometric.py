@@ -19,6 +19,7 @@ from packnet_sfm_tpu_torch.geometry.camera import Camera, scale_intrinsics, view
 from packnet_sfm_tpu_torch.losses.smoothness import smoothness_loss
 from packnet_sfm_tpu_torch.ops.image import match_scales
 from packnet_sfm_tpu_torch.ops.ssim import ssim_loss
+from packnet_sfm_tpu_torch.parallel.mesh import batch_group, global_mean_var
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +49,11 @@ def inv2depth(inv_depth: torch.Tensor) -> torch.Tensor:
 def _photometric_map(est: torch.Tensor, ref: torch.Tensor,
                      cfg: MultiViewPhotometricConfig) -> torch.Tensor:
     """Per-pixel L1 + SSIM photometric residual [B, H, W, 1], then the
-    optional clip at mean + clip_loss * std (std with ddof 0, as jnp.std).
+    optional clip at mean + clip_loss * std (std with ddof 0, as jnp.std),
+    over the global batch: with more than one rank the statistics are taken
+    over every rank's maps (``parallel/mesh.global_mean_var``), as the JAX
+    package's step over a globally sharded batch takes them, gradients
+    into the bound included.
 
     Computed in float32 on any input. In bfloat16 the JAX package's jnp
     types make SSIM's moments of a bfloat16 image bfloat16 too, but XLA
@@ -63,8 +68,13 @@ def _photometric_map(est: torch.Tensor, ref: torch.Tensor,
     else:
         loss = torch.abs(est - ref)
     if cfg.clip_loss > 0.0:
-        bound = loss.mean() + cfg.clip_loss * loss.std(correction=0)
-        loss = torch.minimum(loss, bound)
+        group = batch_group()
+        if group is None:
+            mean, std = loss.mean(), loss.std(correction=0)
+        else:
+            mean, var = global_mean_var(loss, tuple(range(loss.dim())), group)
+            std = torch.sqrt(var)
+        loss = torch.minimum(loss, mean + cfg.clip_loss * std)
     return loss
 
 

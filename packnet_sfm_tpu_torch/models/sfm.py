@@ -35,6 +35,8 @@ from packnet_sfm_tpu_torch.losses.photometric import (
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate_image
 
 PORTED_KINDS = ("SelfSupModel", "GenericSelfSupModel")
+# inverse depths that every ported depth network returns, finest first
+DEPTH_SCALES = 4
 
 
 class SfmModelDef(nn.Module):
@@ -109,6 +111,15 @@ def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
         out["poses"] = [pose_vec_to_mat(pose_vec[:, i], model.rotation_mode)
                         for i in range(pose_vec.shape[1])]
     return out
+
+
+def scales_used(model: SfmModelDef, num_scales: Optional[int] = None) -> int:
+    """How many of the depth network's inverse depths ``model_loss`` reads:
+    the generic loss's scale count, else ``num_scales`` or the photometric
+    config's."""
+    if model.kind == "GenericSelfSupModel":
+        return model.generic_photometric.num_scales
+    return num_scales or model.photometric.num_scales
 
 
 def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from packnet_sfm_tpu_torch.parallel.mesh import batch_group, global_mean_var
+
 
 def kaiming_fan_out_(w: torch.Tensor, gen: torch.Generator) -> None:
     """flax variance_scaling(2.0, 'fan_out', 'normal')."""
@@ -34,6 +36,12 @@ class BatchNorm(nn.Module):
     Training normalizes with the batch statistics and moves the running
     statistics by 0.1 towards them, with the BIASED batch variance as flax
     does (``torch.nn.BatchNorm2d`` moves them towards the unbiased one).
+    With more than one rank the batch is the global one, as in the JAX
+    package's step over a globally sharded batch: the mean and variance are
+    taken over every rank's rows (``parallel/mesh.global_mean_var``, whose
+    gradients cross the ranks), and every rank moves its running
+    statistics by the same values. (``torch.nn.SyncBatchNorm`` keeps the
+    unbiased running variance and takes no CPU tensor.)
     """
 
     def __init__(self, channels: int, momentum: float = 0.9, epsilon: float = 1e-5):
@@ -49,11 +57,24 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.epsilon)
+        group = batch_group()
+        if group is not None:
+            return self._global_batch_norm(x, group)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-            self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+            self._move_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.epsilon)
+
+    def _move_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+        self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+
+    def _global_batch_norm(self, x: torch.Tensor, group) -> torch.Tensor:
+        mean, var = global_mean_var(x, (0, 2, 3), group)
+        with torch.no_grad():
+            self._move_running(mean.flatten(), var.flatten())
+        scale = torch.rsqrt(var + self.epsilon) * self.weight.view(1, -1, 1, 1)
+        return (x - mean) * scale + self.bias.view(1, -1, 1, 1)
 
 
 class BasicBlock(nn.Module):

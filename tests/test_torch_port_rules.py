@@ -19,7 +19,7 @@
   tests/test_torch_{datasets,ddad,native}.py);
 - ``setup_dataset`` builds the KITTI, Image and DGP readers for every split;
 - what is not ported yet refuses with a pointer to ROADMAP.md (ResNets
-  other than 18, multi-process training, the S3 sync; bfloat16 is
+  other than 18, the S3 sync; bfloat16 and multi-process training are
   accepted), and a missing Pillow or matplotlib raises ImportError only
   where one is used;
 - the package calls no library warp: no source of it mentions
@@ -77,7 +77,8 @@ def test_importing_the_port_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 20
     for module in ("datasets.kitti", "datasets.kitti_utils", "datasets.image_folder",
-                   "datasets.ddad", "models.batch_utils", "native"):
+                   "datasets.ddad", "models.batch_utils", "native", "parallel",
+                   "parallel.mesh", "parallel.scaling"):
         assert f"packnet_sfm_tpu_torch.{module}" in MODULES
 
 
@@ -518,8 +519,10 @@ def test_unported_eval_pieces_refuse_naming_the_roadmap(tmp_path):
     half = cfg.clone()                       # bfloat16 is ported: accepted
     half.arch.dtype = "bfloat16"
     assert Trainer(half, device="cpu").model.depth_net.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5"):
-        train(cfg.to_dict(), distributed=True, device="cpu")
+    # multi-process training is ported: --distributed asks for this rank's
+    # card, and without one it raises instead of training on the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg.to_dict(), distributed=True)
     with pytest.raises(NotImplementedError, match="S3"):
         ModelCheckpoint(str(tmp_path), s3_path="s3://bucket/run")
     # the training half is there: nothing of it refuses any more

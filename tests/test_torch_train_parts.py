@@ -192,7 +192,7 @@ def test_missing_or_mismatched_artifact(graft, tmp_path, capsys, monkeypatch):
 
 # --- cli/train.py ----------------------------------------------------------------------
 
-def test_train_cli_arguments():
+def test_train_cli_arguments(monkeypatch):
     args = cli_train.parse_args(["run.yaml"])
     assert (args.file, args.device, args.profile_dir, args.distributed) == (
         "run.yaml", "cuda", None, False)
@@ -201,8 +201,41 @@ def test_train_cli_arguments():
     assert (args.device, args.profile_dir) == ("cpu", "p")
     with pytest.raises(SystemExit):
         cli_train.parse_args(["run.txt"])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    assert cli_train.parse_args(["run.yaml", "--distributed", "--device", "cpu"]).distributed
+    # --distributed on a machine without the card: it raises, and nothing
+    # moves to the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_train.train("run.yaml", distributed=True)
+    # the backend by device, and cuda:LOCAL_RANK, with the group's calls recorded
+    from packnet_sfm_tpu_torch.parallel import mesh
+
+    joined = []
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: joined.append(backend))
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group=None: joined[-1])
+    monkeypatch.setattr(torch.distributed, "new_group", lambda backend: f"{backend} group")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: joined.append(str(dev)))
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    for device, backend, want in (("cuda", None, ["cuda:1", "nccl"]),
+                                  ("cpu", None, ["gloo"]),
+                                  ("cuda:0", "gloo", ["cuda:0", "gloo"])):
+        monkeypatch.setattr(mesh, "_groups", {})
+        joined.clear()
+        assert mesh.init_distributed(backend, device) == torch.device(want[0] if len(
+            want) > 1 else "cpu")
+        assert joined == want
+        assert mesh._groups["host"] == ("gloo group" if want[-1] == "nccl"
+                                        else torch.distributed.group.WORLD)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    joined.clear()
+    with pytest.raises(RuntimeError, match="no card cuda:1"):
+        mesh.init_distributed()
+    assert joined == []
 
 
 def test_train_cli_runs_a_yaml_and_resumes_a_directory(tmp_path, capsys):
