@@ -112,6 +112,16 @@ Phases, each of which fails the run:
    preempt_epoch=00.ckpt, and a two-rank resume that finishes the epoch.
    Two ranks on one card are correctness runs, not speed figures; the
    line says so.
+9. The remaining networks and model kinds, on phase 7's trees:
+   train_packnet_san_kitti.yaml (PackNet-SAN, groundtruth depth, velodyne
+   input depth, batch 1, with a 352x1216 crop for its borders): its loss
+   terms and inverse depths on the card against the CPU at 64x96, one
+   epoch, then the eval protocol with and without input depth, float32 and
+   --half, and infer; train_packnet_san_ddad.yaml with lidar input depth;
+   overfit_packnet_supervised.yaml to the JAX package's bar;
+   overfit_kitti.yaml at ResNet-18 and -50; VelSup on train_kitti.yaml's
+   networks with OXTS poses. Each run's launch counters against what its
+   config launches a step.
 
 Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
 it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
@@ -120,14 +130,16 @@ a CUDA device; exits non-zero, printing no result, without one.
 The last line is {"ok": true, "device": {...}}; before the kernels' line,
 one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
 {"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's,
-one line {"data": {...}} phase 7's and one line {"distributed": {...}}
-phase 8's (with "backend" and "ranks_per_card").
+one line {"data": {...}} phase 7's, one line {"distributed": {...}}
+phase 8's (with "backend" and "ranks_per_card") and one line {"models":
+{...}} phase 9's.
 The line before the last lists each kernel with its dtype, its launches on
 its train path's steps (the bfloat16 steps; the float32-image warp's on the
 float32 flagship steps), error against the plain version, time, plain
 time, bound and, where one PyTorch call computes the same function, that
 call's time, and each kernel's launches on phase 7's runs
-("data_launches") and, by rank, on phase 8's ("distributed_launches"). A
+("data_launches"), by rank on phase 8's ("distributed_launches") and by
+run on phase 9's ("models_launches"). A
 bound is the largest of the bytes' time, the operations' time and the time
 of an empty kernel's launch, measured here.
 """
@@ -1460,6 +1472,10 @@ KITTI_CALIB = {"2011_09_26": (721.5377, 609.5593, 172.854),
                "2011_09_30": (707.0912, 601.8873, 183.1104)}
 KITTI_FRAMES, KITTI_TRAIN = 20, 6
 VELODYNE_DENSITY = 0.04
+# proj_depth/groundtruth (16-bit PNGs, depth * 256): the same depth, denser,
+# as KITTI's accumulated ground truth is; its own generator, so that the
+# velodyne maps and frames of phase 7 stay what they were
+GROUNDTRUTH_DENSITY = 0.16
 # The image folder: numbered JPEG frames at a source size above the
 # config's 384x384 (the omnicam release's own size is not in the repository).
 OMNICAM_SIZE, OMNICAM_FRAMES = (768, 768), 12
@@ -1511,7 +1527,7 @@ def write_kitti_tree(root):
     """The KITTI raw tree of phase 7; returns its split files by name."""
     import numpy as np
 
-    rng = np.random.default_rng(7)
+    rng, rng_gt = np.random.default_rng(7), np.random.default_rng(17)
     R = ("9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 "
          "-4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01")
     splits = {"train": [], "val": [], "test_a": [], "test": []}
@@ -1529,7 +1545,7 @@ def write_kitti_tree(root):
         drive = root / date / f"{date}_drive_{num:04d}_sync"
         ys, xs = np.mgrid[:h, :w].astype(np.float32)
         depth = 5.0 + 70.0 * (1.0 - ys / h) ** 2 + 3.0 * np.sin(xs / 97.0)
-        for d in ("oxts/data", "proj_depth/velodyne/image_02"):
+        for d in ("oxts/data", "proj_depth/velodyne/image_02", "proj_depth/groundtruth/image_02"):
             (drive / d).mkdir(parents=True)
         for i, frame in enumerate(photo_frames(rng, KITTI_FRAMES, h, w)):
             rel = f"{date}/{drive.name}/image_02/data/{i:010d}.png"
@@ -1540,6 +1556,9 @@ def write_kitti_tree(root):
             valid = rng.uniform(size=(h, w)) < VELODYNE_DENSITY
             np.savez_compressed(drive / "proj_depth/velodyne/image_02" / f"{i:010d}.npz",
                                 velodyne_depth=(depth * valid).astype(np.float32))
+            dense = rng_gt.uniform(size=(h, w)) < GROUNDTRUTH_DENSITY
+            jobs.append((drive / "proj_depth/groundtruth/image_02" / f"{i:010d}.png",
+                         np.round(depth * dense * 256.0).astype(np.uint16)))
             splits["test"].append(rel)
             if 1 <= i <= KITTI_TRAIN:
                 splits["train"].append(rel)
@@ -1659,7 +1678,7 @@ def data_train_run(device, cfg, per_step, label, bare=True):
     import torch
 
     from packnet_sfm_tpu_torch.cli.train import build_trainer
-    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, zero_metrics
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, METRIC_KEYS, zero_metrics
     from packnet_sfm_tpu_torch.models.batch_utils import stack_multicam_batch
 
     gc.collect()                    # an earlier run's trainer must not count in this one's peak
@@ -1699,6 +1718,9 @@ def data_train_run(device, cfg, per_step, label, bare=True):
         if not (np.isfinite(e["loss"]) and all(np.all(np.isfinite(t)) for t in tables)):
             raise AssertionError(f"{label}: epoch {e['epoch']}: loss {e['loss']}, {tables}")
     rec = dict(steps=steps, images_per_step=sorted(set(batch_images)), loss=h["loss"],
+               metrics={k: h[k] for k in METRIC_KEYS if k in h},
+               depth_gt_abs_rel_by_epoch=[e["val"][0]["depth_gt"][0] if e["val"] else None
+                                          for e in history],
                imgs_per_sec=h["imgs_per_sec"], train_seconds=h["seconds"],
                val_seconds=h["val_seconds"], peak_mib=h["peak_mib"], mib_before_fit=held,
                launches=counts,
@@ -2303,6 +2325,219 @@ def distributed_phase(device, data):
     return result
 
 
+# Phase 9: the remaining networks and model kinds, on phase 7's trees. Per
+# train step, as each config runs: PackNet-SAN (supervised weight 1) has no
+# photometric graph and launches no kernel of the port; overfit_kitti.yaml
+# (float32) warps its 4 scales with the float32-image kernels; VelSup on
+# train_kitti.yaml's networks (bfloat16) with the bfloat16-image ones.
+NO_LAUNCHES = {}
+OVERFIT_KITTI_LAUNCHES = {"warp_fwd": KITTI_SCALES, "warp_bwd": KITTI_SCALES}
+# the supervised recipe's bar, as the JAX package's tests/test_overfit_bar.py
+# pins it: epoch 1's depth_gt abs_rel below this, and below epoch 0's
+SUPERVISED_BAR = 0.42
+# SAN's model_loss on the card against the CPU: batch 1 at this size
+SAN_CPU_HW = (64, 96)
+# PackNet-SAN's 352x1216 KITTI crop in the form that both packages read: a
+# 2-tuple (width, height) centred on each frame (the tree's frames are
+# 370x1226 to 376x1241)
+SAN_CROP = "(1216, 352)"
+
+
+def san_kitti_config(root, checkpoint=None):
+    """configs/train_packnet_san_kitti.yaml on phase 7's KITTI tree:
+    groundtruth depth, velodyne input depth, batch 1, bfloat16, one epoch of
+    its train split; as written but for its crop borders. Its (-352, 0.5,
+    0.5, 1216) crops 188x621 of a 375x1242 frame as both packages read a
+    4-tuple, (x1, y1, x2, y2) (ROADMAP.md §3 (q)); SAN_CROP is the 352x1216
+    crop its authors meant, centred rather than the bottom rows."""
+    import copy
+
+    from packnet_sfm_tpu_torch.core.config import SAN_KITTI
+
+    cfg = copy.deepcopy(SAN_KITTI)
+    cfg["arch"]["max_epochs"] = 1
+    cfg["datasets"]["augmentation"] = {"crop_train_borders": SAN_CROP,
+                                       "crop_eval_borders": SAN_CROP}
+    cfg["checkpoint"] = checkpoint or {}
+    cfg["datasets"]["train"].update(path=[str(root)], split=["train.txt"])
+    for split, files in (("validation", "val.txt"), ("test", "val.txt")):
+        cfg["datasets"][split] = dict(cfg["datasets"][split], path=[str(root)], split=[files])
+    return cfg
+
+
+def san_cpu_reference(model, device):
+    """PackNet-SAN's model_loss at SAN_CPU_HW, batch 1, on the card and on
+    the CPU with the same weights, in the bfloat16 policy: each loss term
+    and the full-resolution inverse depths of both passes, held at the
+    float32 tolerance (SAN takes no compute dtype, so both sides compute in
+    float32 on the same bfloat16-rounded inputs). The inverse depths' spread
+    is printed, so that an output that does not depend on the computation
+    would show."""
+    import torch
+
+    from packnet_sfm_tpu_torch.core.config import SAN_KITTI, config_from_dict
+    from packnet_sfm_tpu_torch.engine.factory import setup_model
+    from packnet_sfm_tpu_torch.models.sfm import model_loss
+    from packnet_sfm_tpu_torch.tools.profile_step import san_batches
+
+    (batch,) = san_batches(1, *SAN_CPU_HW)
+    cfg = config_from_dict(SAN_KITTI)
+    cpu_model = setup_model(cfg.model, device="cpu", dtype=torch.bfloat16)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    terms, inv = {}, {}
+    for name, m, dev in (("card", model, device), ("cpu", cpu_model, "cpu")):
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            _, (metrics, out) = model_loss(m, prepared(batch, dev, torch.bfloat16),
+                                           generator=gen)
+        if out["inv_depths"][0].device.type != torch.device(dev).type:
+            raise AssertionError(f"SAN's {name} run computed on {out['inv_depths'][0].device}")
+        terms[name] = {k: metrics[k].item() for k in ("supervised_loss", "supervised_loss_rgbd",
+                                                      "depth_loss", "loss")}
+        inv[name] = {k: out[k][0].float().cpu() for k in ("inv_depths", "inv_depths_rgbd")}
+    rel = max(abs(terms["card"][k] - terms["cpu"][k]) / abs(terms["cpu"][k]) for k in terms["cpu"])
+    log(f"SAN model_loss {SAN_CPU_HW[0]}x{SAN_CPU_HW[1]} batch 1, bfloat16 policy (float32 "
+        "compute): " + "; ".join(f"{k} card {terms['card'][k]:.9g} cpu {terms['cpu'][k]:.9g}"
+                                  for k in terms["cpu"])
+        + f"; largest rel {rel:.2e} (tolerance {TOL_LOSS_CPU:g})")
+    inv_err = 0.0
+    for k, ref in inv["cpu"].items():
+        err = (inv["card"][k] - ref).abs().max().item() / ref.abs().max().item()
+        inv_err = max(inv_err, err)
+        log(f"SAN {k}[0] cpu min {ref.min().item():.6g} max {ref.max().item():.6g} std "
+            f"{ref.std().item():.6g}; card std {inv['card'][k].std().item():.6g}; max |card - "
+            f"cpu| / max {err:.2e} (tolerance {TOL_LOSS_CPU:g})")
+    if not (rel <= TOL_LOSS_CPU and inv_err <= TOL_LOSS_CPU):
+        raise AssertionError("SAN's model_loss on the card disagrees with the CPU")
+    return {"terms": terms, "max_rel": rel, "inv_depths_max_rel": inv_err}
+
+
+def san_kitti_run(device, root, out):
+    """(a): train_packnet_san_kitti.yaml on the KITTI tree through the fit,
+    the first step's loss against the CPU, then the eval protocol with and
+    without input depth, float32 and --half, then infer."""
+    import shutil
+
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.cli.eval import evaluate
+    from packnet_sfm_tpu_torch.cli.infer import infer_and_save
+    from packnet_sfm_tpu_torch.core.config import config_from_dict
+    from packnet_sfm_tpu_torch.engine.factory import compute_dtype, setup_model
+    from packnet_sfm_tpu_torch.engine.train import EVAL_MODES
+
+    ckpt_dir = out / "san_ckpt"
+    cfg = san_kitti_config(root, {"filepath": str(ckpt_dir), "save_top_k": 1})
+    parsed = config_from_dict(cfg)
+    rel = san_cpu_reference(setup_model(parsed.model, device=device, seed=parsed.arch.seed,
+                                        dtype=compute_dtype(parsed)), device)
+    rec = data_train_run(device, cfg, NO_LAUNCHES, "KITTI train_packnet_san_kitti.yaml")
+    terms = {k: rec["metrics"][k] for k in ("supervised_loss", "supervised_loss_rgbd",
+                                             "depth_loss", "loss")}
+    log(f"SAN KITTI: step {rec['bare_step_ms']:.2f} ms (median of the bare steps 2-N, 352x1216, "
+        f"batch 1, two passes), peak {rec['peak_mib']:.1f} MiB; the epoch's terms {terms}")
+    if not all(np.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"SAN's loss terms: {terms}")
+    (ckpt,) = sorted(ckpt_dir.iterdir())
+
+    reset_counts()
+    tables, secs = {}, {}
+    for rows, half in (("rgbd", False), ("rgb", False), ("rgbd", True), ("rgb", True)):
+        ecfg = san_kitti_config(root)
+        if rows == "rgb":
+            ecfg["datasets"]["test"]["input_depth_type"] = [""]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tables[rows, half] = evaluate(str(ckpt), ecfg, half=half, device=device)[0]
+        secs[rows, half] = time.perf_counter() - t0
+    for key, table in tables.items():
+        log(f"SAN eval {key[0]} rows{' --half' if key[1] else ''} ({secs[key]:.1f} s): "
+            + ", ".join(f"{m} abs_rel {table[m][0]:.4f}" for m in EVAL_MODES))
+    lidar = max(float(np.abs(tables["rgbd", False][m] - tables["rgb", False][m]).max())
+                for m in EVAL_MODES)
+    half = max(float(np.abs(tables[r, True][m] - tables[r, False][m]).max())
+               for r in ("rgb", "rgbd") for m in EVAL_MODES)
+    log(f"SAN eval: max |rgbd - rgb| {lidar:.3e} (the lidar reaches the graph); max |--half - "
+        f"float32| {half:.3e} (tolerance {TOL_PROTOCOL:g}: SAN takes no compute dtype, so "
+        "--half computes in float32)")
+    if not (lidar > 0 and half <= TOL_PROTOCOL) or not all(
+            np.all(np.isfinite(t[m])) for t in tables.values() for m in EVAL_MODES):
+        raise AssertionError(f"SAN eval tables: {tables}")
+
+    frames = root / KITTI_DRIVES[0][0] / f"{KITTI_DRIVES[0][0]}_drive_{KITTI_DRIVES[0][1]:04d}_sync" \
+        / "image_02" / "data"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer_and_save(str(ckpt), str(frames), str(out / "san_infer"), image_shape=(352, 1216),
+                       save="npz", device=device)
+    infer_s = time.perf_counter() - t0
+    depths = [np.load(p)["depth"] for p in sorted((out / "san_infer").glob("*.npz"))]
+    counts = read_counts()
+    log(f"SAN infer (rgb only) on {len(depths)} frames at 352x1216: {infer_s:.1f} s; launches "
+        f"during eval and infer {counts}")
+    if len(depths) != KITTI_FRAMES or any(d.shape != (352, 1216) or not np.all(np.isfinite(d))
+                                          for d in depths) or any(counts.values()):
+        raise AssertionError("SAN infer outputs or launches")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)         # 1.3 GB of weights and Adam moments
+    rec.update(cpu_reference=rel, terms=terms, eval_seconds={f"{r}{'_half' if h else ''}": v
+                                                            for (r, h), v in secs.items()},
+               eval_abs_rel={f"{r}{'_half' if h else ''}": {m: float(t[m][0]) for m in EVAL_MODES}
+                             for (r, h), t in tables.items()},
+               eval_rgbd_vs_rgb_max_abs_diff=lidar, eval_half_vs_float32_max_abs_diff=half,
+               infer_frames=len(depths), infer_seconds=infer_s)
+    return rec
+
+
+def models_phase(device):
+    """Phase 9 (see the module docstring); returns its numbers."""
+    import copy
+
+    from packnet_sfm_tpu_torch.core.config import OVERFIT_KITTI, OVERFIT_SUPERVISED, SAN_DDAD
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_data"
+    kitti, dgp = root / "KITTI_raw", root / "DDAD"
+    result = {"san_kitti": san_kitti_run(device, kitti, root)}
+
+    cfg = copy.deepcopy(SAN_DDAD)
+    cfg["arch"]["max_epochs"] = 1
+    for split in ("train", "validation", "test"):
+        cfg["datasets"][split]["path"] = [str(dgp)]
+    result["san_ddad"] = data_train_run(device, cfg, NO_LAUNCHES,
+                                        "DGP train_packnet_san_ddad.yaml")
+
+    cfg = copy.deepcopy(OVERFIT_SUPERVISED)
+    rec = data_train_run(device, cfg, NO_LAUNCHES, "overfit_packnet_supervised.yaml",
+                         bare=False)
+    abs_rel = rec["depth_gt_abs_rel_by_epoch"]
+    log(f"overfit_packnet_supervised.yaml: depth_gt abs_rel by epoch {abs_rel} (bar: epoch 1 "
+        f"< {SUPERVISED_BAR} and below epoch 0)")
+    if not (abs_rel[1] < SUPERVISED_BAR and abs_rel[1] < abs_rel[0]):
+        raise AssertionError(f"the supervised recipe missed the bar: {abs_rel}")
+    result["supervised"] = rec
+
+    for version in ("18", "50"):
+        cfg = copy.deepcopy(OVERFIT_KITTI)
+        cfg["arch"]["max_epochs"] = 1
+        cfg["model"]["depth_net"]["version"] = cfg["model"]["pose_net"]["version"] = version
+        cfg["datasets"]["train"].update(path=[str(kitti)], split=["train.txt"], repeat=[1])
+        for split in ("validation", "test"):
+            cfg["datasets"][split].update(path=[str(kitti)], split=["val.txt"])
+        result[f"overfit_kitti_{version}"] = data_train_run(
+            device, cfg, OVERFIT_KITTI_LAUNCHES,
+            f"overfit_kitti.yaml, DepthResNet-{version} + PoseResNet-{version}")
+
+    cfg = kitti_train_config(kitti)
+    cfg["model"]["name"] = "VelSupModel"
+    result["velsup"] = data_train_run(device, cfg, FLAGSHIP_LAUNCHES,
+                                      "VelSupModel on train_kitti.yaml's networks")
+    if not result["velsup"]["metrics"].get("velocity_loss", 0) > 0:
+        raise AssertionError(f"VelSup's velocity term: {result['velsup']['metrics']}")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 9 took {result['seconds']:.1f} s")
+    return result
+
+
 def main():
     import torch
 
@@ -2363,6 +2598,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     dist = distributed_phase(device, data)
+    gc.collect()
+    torch.cuda.empty_cache()
+    models = models_phase(device)
 
     # each kernel's launches are those of the train path it belongs to, as
     # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
@@ -2408,12 +2646,16 @@ def main():
             "eval_kitti": [c[name] for c in two["eval"]["launches"]],
             "drain": [c[name] for c in dist["drain"]["launches"]],
             "resume": [c[name] for c in dist["drain"]["resume_launches"]]}
+        # phase 9's, by run
+        entry["models_launches"] = {run: rec["launches"][name] for run, rec in models.items()
+                                    if isinstance(rec, dict)}
         kernels.append(entry)
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"data": data}))
     print(json.dumps({"distributed": dist}))
+    print(json.dumps({"models": models}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,12 @@ imported only then; ``evaluate`` also takes that config as a dict, such as
 ``core/config.EVAL_KITTI``, for hosts without PyYAML), runs the test split
 through ``Trainer.test`` and prints the metric tables. Runs on the card
 unless ``--device cpu`` is given. ``--half`` sets ``arch.dtype: bfloat16``, as the JAX CLI does: the model
-computes in bfloat16 (``engine/factory.setup_model``); a checkpoint whose
-config says bfloat16 evaluates so without it.
+computes in bfloat16 where its networks take a dtype (``engine/factory.
+setup_model``; PackNet-SAN and the ResNet family take none and compute in
+float32, as in the JAX package); a checkpoint whose config says bfloat16
+evaluates so without it. A completion model (PackNet-SAN) evaluates with
+the test split's input depth where the split names one (``input_depth_type``:
+its rgb+d rows), else on rgb alone.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ folder of images to depth maps::
         --output <file|dir> [--image_shape H W] [--save npz|png] [--device cuda|cpu]
 
 Loads a checkpoint directory, runs the depth network alone in eval mode
-(``make_depth_fn``), and saves the depth as npz or png, or else the image
+on the image alone (``make_depth_fn``; PackNet-SAN takes its rgb-only
+pass), and saves the depth as npz or png, or else the image
 above its colormapped inverse depth as one png. Decoding and writing images
 needs Pillow, the colormap matplotlib; both are imported where they are
 used. Runs on the card unless ``--device cpu`` is given. ``--half`` builds

@@ -7,8 +7,9 @@ with a user yaml or dict; dataset lists broadcast to a common length.
 The schema mirrors the JAX package key-for-key so the repo's yaml configs
 work here unmodified. ``yaml`` is imported inside ``load_config`` only, so
 the train paths run where PyYAML is not installed; ``OMNICAM``
-(``configs/train_omnicam.yaml``, NRS) and ``KITTI``
-(``configs/train_kitti.yaml``, the PackNet01 flagship) are those
+(``configs/train_omnicam.yaml``, NRS), ``KITTI`` (``configs/train_kitti.
+yaml``, the PackNet01 flagship) and the dicts below them (the overfit
+recipes, DDAD, the KITTI eval, PackNet-SAN on KITTI and DDAD) are those
 configurations as dict literals for that case.
 """
 
@@ -408,4 +409,102 @@ EVAL_KITTI = {
     },
     "save": {"folder": "/data/save",
              "depth": {"rgb": True, "viz": True, "npz": True, "png": True}},
+}
+
+
+# configs/overfit_packnet_supervised.yaml as ``yaml.safe_load`` returns it:
+# the supervised learning proof (SemiSupModel at weight 1.0, so no pose net
+# and no photometric graph; PackNetSlim01-1A, 64x96 Synthetic, batch 8, 16
+# samples repeated 16 times, 2 epochs).
+OVERFIT_SUPERVISED = {
+    "arch": {"max_epochs": 2},
+    "checkpoint": {"monitor": "depth_gt_abs_rel", "mode": "min"},
+    "model": {
+        "name": "SemiSupModel",
+        "loss": {"supervised_loss_weight": 1.0, "supervised_method": "sparse-l1"},
+        "depth_net": {"name": "PackNetSlim01", "version": "1A"},
+        "pose_net": {"name": ""},
+    },
+    "datasets": {
+        "train": dict(_synthetic_split(8, 16, repeat=[16]), depth_type=["gt"]),
+        "validation": dict(_synthetic_split(8, 8), depth_type=["gt"]),
+        "test": dict(_synthetic_split(8, 8), depth_type=["gt"]),
+    },
+}
+
+
+def _kitti_split(path: str, split: str, depth_type: str, **extra) -> dict:
+    return {"dataset": ["KITTI"], "path": [path], "split": [split],
+            "depth_type": [depth_type], **extra}
+
+
+# configs/overfit_kitti.yaml as ``yaml.safe_load`` returns it: DepthResNet-18
+# + PoseResNet-18 on a tiny KITTI split at 192x640, batch 6.
+OVERFIT_KITTI = {
+    "arch": {"max_epochs": 1},
+    "checkpoint": {"filepath": ""},
+    "model": {
+        "name": "SelfSupModel",
+        "optimizer": {"name": "Adam", "depth": {"lr": 0.0002}, "pose": {"lr": 0.0002}},
+        "scheduler": {"name": "StepLR", "step_size": 30, "gamma": 0.5},
+        "depth_net": {"name": "DepthResNet", "version": "18"},
+        "pose_net": {"name": "PoseResNet", "version": "18"},
+        "params": {"crop": "garg", "min_depth": 0.0, "max_depth": 80.0},
+    },
+    "datasets": {
+        "augmentation": {"image_shape": "(192, 640)"},
+        "train": _kitti_split("/data/datasets/KITTI_tiny", "kitti_tiny.txt", "velodyne",
+                              batch_size=6, repeat=[1000]),
+        "validation": _kitti_split("/data/datasets/KITTI_tiny", "kitti_tiny.txt", "velodyne"),
+        "test": _kitti_split("/data/datasets/KITTI_tiny", "kitti_tiny.txt", "velodyne"),
+    },
+}
+
+
+_SAN_MODEL = {
+    "name": "SemiSupCompletionModel",
+    "loss": {"supervised_method": "sparse-l1", "supervised_num_scales": 4,
+             "supervised_loss_weight": 1.0},
+    "optimizer": {"depth": {"lr": 0.0002}, "pose": {"lr": 0.0002}},
+    "scheduler": {"name": "StepLR", "step_size": 30, "gamma": 0.5},
+    "depth_net": {"name": "PackNetSAN01", "version": "1A"},
+    "pose_net": {"name": ""},
+}
+_SAN_KITTI_EVAL = _kitti_split("/data/datasets/KITTI_raw", "data_splits/eigen_test_files.txt",
+                               "groundtruth", input_depth_type=["velodyne"])
+
+
+# configs/train_packnet_san_kitti.yaml as ``yaml.safe_load`` returns it:
+# PackNet-SAN (SemiSupCompletionModel + PackNetSAN01-1A, supervised weight
+# 1.0, so no pose net) on KITTI's 352x1216 crop, groundtruth depth and
+# velodyne input depth, batch 1, bfloat16.
+SAN_KITTI = {
+    "arch": {"dtype": "bfloat16"},
+    "model": dict(_SAN_MODEL, params={"crop": "garg", "min_depth": 0.0, "max_depth": 80.0}),
+    "datasets": {
+        "augmentation": {"crop_train_borders": "(-352, 0.5, 0.5, 1216)",
+                         "crop_eval_borders": "(-352, 0.5, 0.5, 1216)"},
+        "train": _kitti_split("/data/datasets/KITTI_raw",
+                              "data_splits/eigen_zhou_files_with_gt.txt", "groundtruth",
+                              batch_size=1, back_context=0, forward_context=0,
+                              input_depth_type=["velodyne"], repeat=[1]),
+        "validation": _SAN_KITTI_EVAL,
+        "test": _SAN_KITTI_EVAL,
+    },
+}
+
+
+# configs/train_packnet_san_ddad.yaml as ``yaml.safe_load`` returns it:
+# PackNet-SAN on DDAD (DGP) at 384x640 with lidar ground truth and input
+# depth, batch 1, bfloat16.
+SAN_DDAD = {
+    "arch": {"dtype": "bfloat16"},
+    "model": dict(_SAN_MODEL, params={"crop": "", "min_depth": 0.0, "max_depth": 200.0}),
+    "datasets": {
+        "augmentation": {"image_shape": "(384, 640)"},
+        "train": _dgp_split("train", batch_size=1, back_context=0, forward_context=0,
+                            input_depth_type=["lidar"]),
+        "validation": _dgp_split("val", input_depth_type=["lidar"]),
+        "test": _dgp_split("val", input_depth_type=["lidar"]),
+    },
 }

@@ -142,6 +142,9 @@ class DDADDataset:
         self.cameras = list(cameras or ["CAMERA_01"])
         self.lidar = depth_type or "LIDAR"
         self.with_depth = bool(depth_type)
+        # the lidar whose projection is the network's input depth (PackNet-
+        # SAN); the JAX package's reader takes this argument and drops it
+        self.input_lidar = input_depth_type or None
         self.with_pose = with_pose
         self.bwd, self.fwd = back_context, forward_context
         self.has_context = back_context + forward_context > 0
@@ -179,9 +182,11 @@ class DDADDataset:
         return _pose_from_json(rec.get("pose", {})).astype(np.float32)
 
     def _depth(self, scene: _Scene, sample_idx: int, cam: str,
-               shape) -> np.ndarray:
-        """Lidar depth projected into the camera, cached next to the cloud."""
-        d = scene.datum_for(sample_idx, self.lidar)
+               shape, lidar: Optional[str] = None) -> np.ndarray:
+        """Lidar depth projected into the camera, cached next to the cloud;
+        of ``lidar``, else the ground truth's sensor."""
+        lidar = lidar or self.lidar
+        d = scene.datum_for(sample_idx, lidar)
         if d is None:
             return np.zeros(shape[:2] + (1,), np.float32)
         pc_rec = d["datum"]["point_cloud"]
@@ -193,8 +198,7 @@ class DDADDataset:
         points = cloud[cloud.files[0]][:, :3]
         K, cam_extr = scene.calibration.get(cam, (np.eye(3, dtype=np.float32),
                                                   np.eye(4, dtype=np.float32)))
-        _, lidar_extr = scene.calibration.get(self.lidar,
-                                              (None, np.eye(4, dtype=np.float32)))
+        _, lidar_extr = scene.calibration.get(lidar, (None, np.eye(4, dtype=np.float32)))
         # sensor extrinsics are sensor->vehicle; lidar->cam = inv(cam) @ lidar
         lidar_to_cam = invert_pose_numpy(cam_extr) @ lidar_extr
         depth = project_pointcloud_to_depth(
@@ -222,6 +226,8 @@ class DDADDataset:
         }
         if self.with_depth:
             sample["depth"] = self._depth(scene, k, cam, rgb.shape)
+        if self.input_lidar:
+            sample["input_depth"] = self._depth(scene, k, cam, rgb.shape, self.input_lidar)
         if self.with_pose:
             sample["pose"] = self._pose(scene, k, cam)
         if self.has_context:

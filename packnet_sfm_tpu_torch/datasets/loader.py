@@ -286,6 +286,8 @@ def setup_dataset(cfg, mode: str, aug_cfg, seed: int = 42, requirements=None):
             ds = ImageFolderDataset(cfg.path[i], split=cfg.split[i] or None, **common)
         elif name == "DGP":
             ds = DDADDataset(cfg.path[i], cfg.split[i], depth_type=cfg.depth_type[i],
+                             input_depth_type=(cfg.input_depth_type[i]
+                                               if i < len(cfg.input_depth_type) else None),
                              cameras=cfg.cameras[i] if i < len(cfg.cameras) else None,
                              **common)
         elif name == "Synthetic":

@@ -1,13 +1,14 @@
 """Config -> model/optimizer factories (port of ``engine/factory.py``).
 
-Ported: the PackNet01, PackNetSlim01, DepthResNet and RaySurfaceResNet
-depth networks, PoseNet, the SelfSupModel and GenericSelfSupModel kinds, and
-the StepLR and CosineAnnealingLR schedules; other networks and kinds raise
-``NotImplementedError`` until their slice lands (ROADMAP.md).
+Every network and model kind of the JAX package: the PackNet01,
+PackNetSlim01, PackNetSAN01, DepthResNet and RaySurfaceResNet depth
+networks, PoseNet and PoseResNet, the kinds of ``models/sfm.MODEL_KINDS``,
+and the StepLR and CosineAnnealingLR schedules. An unknown name raises
+``ValueError``, as in the JAX package.
 
 ``dtype`` is the compute dtype (None: float32), passed as the JAX package
-passes it: to PackNet01, PackNetSlim01 and PoseNet only. DepthResNet and
-RaySurfaceResNet take none and compute in float32 on any input. Parameters
+passes it: to PackNet01, PackNetSlim01 and PoseNet only. The ResNet family
+and PackNetSAN01 take none and compute in float32 on any input. Parameters
 stay float32 whatever it is.
 """
 
@@ -22,49 +23,63 @@ from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.engine.metrics import DepthMetricsConfig
 from packnet_sfm_tpu_torch.losses.generic_photometric import GenericPhotometricConfig
 from packnet_sfm_tpu_torch.losses.photometric import MultiViewPhotometricConfig
-from packnet_sfm_tpu_torch.models.sfm import PORTED_KINDS, SfmModelDef
+from packnet_sfm_tpu_torch.losses.supervised import SupervisedLossConfig
+from packnet_sfm_tpu_torch.models.sfm import MODEL_KINDS, SUPERVISED_KINDS, SfmModelDef
 from packnet_sfm_tpu_torch.nn.depth_resnet import DepthResNet
 from packnet_sfm_tpu_torch.nn.packnet import PackNet01, PackNetSlim01
+from packnet_sfm_tpu_torch.nn.packnet_san import PackNetSAN01
+from packnet_sfm_tpu_torch.nn.pose_resnet import PoseResNet
 from packnet_sfm_tpu_torch.nn.posenet import PoseNet
 from packnet_sfm_tpu_torch.nn.raysurface import RaySurfaceResNet
 
 
 def setup_depth_net(cfg: ConfigNode, dtype=None):
     version = cfg.get("version", "")
+    dropout = cfg.get("dropout", 0.0) or None
     if cfg.name in ("PackNet01", "PackNetSlim01"):
         net = PackNet01 if cfg.name == "PackNet01" else PackNetSlim01
-        return net(version=version[1:] or "A", dropout=cfg.get("dropout", 0.0) or None,
+        return net(version=version[1:] or "A", dropout=dropout,
                    remat=bool(cfg.get("remat", False)), dtype=dtype)
+    if cfg.name == "PackNetSAN01":
+        return PackNetSAN01(version=version[1:] or "A", dropout=dropout)
     if cfg.name == "DepthResNet":
         return DepthResNet(version=version.replace("pt", "") or "18")
     if cfg.name == "RaySurfaceResNet":
         return RaySurfaceResNet(version=version.replace("pt", "") or "18")
-    raise NotImplementedError(f"depth net {cfg.name!r} is not ported yet; see ROADMAP.md")
+    raise ValueError(f"Unknown depth net {cfg.name}")
 
 
 def setup_pose_net(cfg: ConfigNode, dtype=None):
     if cfg.name == "PoseNet":
         return PoseNet(dtype=dtype)
+    if cfg.name == "PoseResNet":
+        return PoseResNet(version=cfg.get("version", "").replace("pt", "") or "18")
     if cfg.name in ("", None):
         return None
-    raise NotImplementedError(f"pose net {cfg.name!r} is not ported yet; see ROADMAP.md")
+    raise ValueError(f"Unknown pose net {cfg.name}")
 
 
 def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0, dtype=None) -> SfmModelDef:
     """Build the SfmModelDef of config.model on ``device``, computing in
     ``dtype`` where the network takes one (see the module docstring).
 
-    Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
-    with the JAX package's initializers, then moved to ``device``.
+    As in the JAX package, ``SfmModel`` builds a pose net only where one is
+    named, and the supervised kinds at ``supervised_loss_weight`` >= 1 none
+    at all: their loss has no photometric term. Weights are drawn on the
+    CPU from ``torch.Generator().manual_seed(seed)`` with the JAX package's
+    initializers, then moved to ``device``.
     """
     device = resolve_device(device)
-    if cfg.name not in PORTED_KINDS:
-        raise NotImplementedError(f"model {cfg.name!r} is not ported yet; see ROADMAP.md")
+    if cfg.name not in MODEL_KINDS:
+        raise ValueError(f"Unknown model {cfg.name}")
     loss = cfg.loss
     gen = torch.Generator().manual_seed(seed)
     depth_net = setup_depth_net(cfg.depth_net, dtype)
     depth_net.init_weights(gen)
-    pose_net = setup_pose_net(cfg.pose_net, dtype)
+    needs_pose = cfg.name != "SfmModel" or cfg.pose_net.get("name")
+    if cfg.name in SUPERVISED_KINDS and loss.supervised_loss_weight >= 1.0:
+        needs_pose = False
+    pose_net = setup_pose_net(cfg.pose_net, dtype) if needs_pose else None
     if pose_net is not None:
         pose_net.init_weights(gen)
     knobs = dict(
@@ -80,11 +95,20 @@ def setup_model(cfg: ConfigNode, device="cuda", seed: int = 0, dtype=None) -> Sf
     generic_photometric = None
     if cfg.name.startswith("Generic"):
         generic_photometric = GenericPhotometricConfig(num_scales=1, **knobs)
+    input_keys = (("rgb", "input_depth", "intrinsics")
+                  if cfg.name == "SemiSupCompletionModel" else ("rgb",))
     model = SfmModelDef(depth_net, pose_net, kind=cfg.name, photometric=photometric,
                         generic_photometric=generic_photometric,
+                        supervised=SupervisedLossConfig(
+                            supervised_method=loss.supervised_method,
+                            supervised_num_scales=loss.supervised_num_scales),
+                        supervised_loss_weight=loss.supervised_loss_weight,
+                        velocity_loss_weight=loss.velocity_loss_weight,
+                        weight_rgbd=loss.get("weight_rgbd", 1.0),
                         rotation_mode=loss.rotation_mode,
                         flip_lr_prob=loss.flip_lr_prob,
-                        upsample_depth_maps=loss.upsample_depth_maps)
+                        upsample_depth_maps=loss.upsample_depth_maps,
+                        input_keys=input_keys)
     return model.to(device)
 
 

@@ -10,8 +10,10 @@ images, the flip post-process and the 7 metrics in 4 modes, per sample.
 The bfloat16 policy (``arch.dtype``) is the JAX package's: the networks
 compute in the dtype they were built with (``engine/factory.setup_model``),
 parameters, gradients and Adam's moments stay float32, and the train step
-casts the prepared batch's images to the compute dtype and the loss back to
-float32. The eval step casts nothing: the model casts inside.
+casts the prepared batch's network inputs (the images and 'input_depth')
+to the compute dtype and the loss back to float32; the targets ('depth',
+'pose_context') and the intrinsics stay float32 (``cast_batch``). The eval
+step casts nothing: the model casts inside.
 """
 
 from __future__ import annotations
@@ -80,8 +82,11 @@ def prepare_train_batch(batch: Dict, device) -> Dict:
         out["rgb"] = apply_jitter(rgb, params)
         if ctx:
             out["rgb_context"] = [apply_jitter(c, params) for c in ctx]
-    if "intrinsics" in batch:
-        out["intrinsics"] = to_f(batch["intrinsics"])
+    for key in ("intrinsics", "depth", "input_depth"):
+        if key in batch:
+            out[key] = to_f(batch[key])
+    if "pose_context" in batch:
+        out["pose_context"] = [to_f(p) for p in batch["pose_context"]]
     return out
 
 
@@ -98,12 +103,20 @@ def _microbatches(batch: Dict, grad_accum: int):
                for k, v in batch.items()}
 
 
-def cast_batch(batch: Dict, dtype) -> Dict:
-    """The prepared batch with its floating images cast to ``dtype``.
+# what cast_batch leaves in float32: the intrinsics (ROADMAP.md §3 (h)) and
+# the targets of the supervised and velocity losses (§3 (l))
+FLOAT32_KEYS = ("intrinsics", "depth", "pose_context")
 
-    The JAX package casts every floating leaf, the intrinsics too, which
-    rounds fx = 721.5377 to 720 in bfloat16 (``ROADMAP.md`` §3 (h)); the
-    port keeps 'intrinsics' in float32. An image that two keys share (the
+
+def cast_batch(batch: Dict, dtype) -> Dict:
+    """The prepared batch with its floating network inputs cast to
+    ``dtype``: the images and 'input_depth'.
+
+    The JAX package casts every floating leaf. That rounds the intrinsics,
+    fx = 721.5377 to 720 in bfloat16 (``ROADMAP.md`` §3 (h)), and the
+    targets: ground-truth depth to 0.25 m between 32 and 64 m, 0.5 m beyond
+    (§3 (l)), and the OXTS translations of 'pose_context'. The port keeps
+    ``FLOAT32_KEYS`` in float32. An image that two keys share (the
     originals without jitter) is cast once and stays shared."""
     done: Dict[int, torch.Tensor] = {}
 
@@ -112,7 +125,7 @@ def cast_batch(batch: Dict, dtype) -> Dict:
             done[id(t)] = t.to(dtype)
         return done.get(id(t), t)
 
-    return {k: v if k == "intrinsics" else
+    return {k: v if k in FLOAT32_KEYS else
             [cast(t) for t in v] if isinstance(v, list) else cast(v)
             for k, v in batch.items()}
 
@@ -156,10 +169,16 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     looked for only where the loss reads fewer scales than the depth
     network makes (their gradient stays None, as on one rank). The flip's
     generator, seeded alike on every rank, gives every rank the same draw.
+    A kind without a loss (``SfmModel``, ``GenericSfmModel``) takes no
+    backward, so it is refused there: DDP would wait for a reduction that
+    never comes.
     """
     device = next(model.parameters()).device
     loss_module = _LossModule(model)
     distributed = torch.distributed.is_initialized()
+    if distributed and not model.has_loss:
+        raise ValueError(f"{model.kind} has no loss to train: train it in one process, "
+                         "without a process group")
     if distributed:
         loss_module = DistributedDataParallel(
             loss_module, device_ids=[device.index] if device.type == "cuda" else None,
@@ -178,7 +197,8 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
             defer = distributed and i < len(parts) - 1
             with loss_module.no_sync() if defer else contextlib.nullcontext():
                 loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
-                (loss.float() / max(grad_accum, 1)).backward()
+                if model.has_loss:      # the kinds without a loss have nothing to step
+                    (loss.float() / max(grad_accum, 1)).backward()
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
         optimizer.step()
@@ -196,13 +216,15 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
 EVAL_MODES = ("depth", "depth_pp", "depth_gt", "depth_pp_gt")
 
 
-def eval_forward(model: SfmModelDef, rgb: torch.Tensor) -> torch.Tensor:
-    """Inverse depth of the straight and the flipped images, [2B, H, W, 1]:
-    one batched depth forward of cat([rgb, flip_lr(rgb)]) in eval mode
-    (BatchNorm normalizes with its running statistics)."""
+def eval_forward(model: SfmModelDef, rgb: torch.Tensor, **inputs) -> torch.Tensor:
+    """Inverse depth of the straight and the flipped inputs, [2B, H, W, 1]:
+    one batched depth forward of cat([x, flip_lr(x)]) for the image and for
+    every other input of the depth network given in ``inputs`` (PackNet-
+    SAN's 'input_depth'), in eval mode (BatchNorm normalizes with its
+    running statistics)."""
+    both = {k: torch.cat([v, flip_lr(v)], dim=0) for k, v in dict(inputs, rgb=rgb).items()}
     with torch.inference_mode():
-        out = model_forward(model, {"rgb": torch.cat([rgb, flip_lr(rgb)], dim=0)},
-                            train=False)
+        out = model_forward(model, both, train=False)
     return out["inv_depths"][0].float()
 
 
@@ -233,17 +255,21 @@ def make_eval_step(model: SfmModelDef, metrics_cfg: DepthMetricsConfig):
     """Returns step(batch) -> {mode: [B, 7] per-sample metric rows, and
     'inv_depth'} (see ``eval_metrics``), on the model's device, float32.
 
-    ``batch`` is a host batch (numpy, NHWC): 'rgb' [B, H, W, 3] and 'depth'
-    [B, Hg, Wg, 1], the ground truth at its own resolution; the prediction
-    is brought to it as ``metrics_cfg.scale_output`` says. Per-sample rows,
-    not batch means, so that the caller can mask pad rows and scatter rows
-    by dataset index.
+    ``batch`` is a host batch (numpy, NHWC): 'rgb' [B, H, W, 3], the
+    depth network's other inputs where the batch has them ('input_depth'
+    [B, H, W, 1] for PackNet-SAN: its rgb+d rows, else its rgb rows), and
+    'depth' [B, Hg, Wg, 1], the ground truth at its own resolution; the
+    prediction is brought to it as ``metrics_cfg.scale_output`` says.
+    Per-sample rows, not batch means, so that the caller can mask pad rows
+    and scatter rows by dataset index.
     """
     device = next(model.parameters()).device
+    extra_keys = [k for k in model.input_keys if k not in ("rgb", "intrinsics")]
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         rgb = to_device_float(batch["rgb"], device)
         gt = to_device_float(batch["depth"], device)
-        return eval_metrics(eval_forward(model, rgb), gt, metrics_cfg)
+        inputs = {k: to_device_float(batch[k], device) for k in extra_keys if k in batch}
+        return eval_metrics(eval_forward(model, rgb, **inputs), gt, metrics_cfg)
 
     return step

@@ -31,8 +31,13 @@ train split.
   bit for bit on the CPU.
 
 ``arch.dtype: bfloat16`` builds the model with the bfloat16 compute dtype
-(``engine/factory.setup_model``) and the train steps cast their batches to
-it, as the JAX trainer does; evaluation casts nothing beyond the model.
+(``engine/factory.setup_model``) and the train steps cast their batches'
+network inputs to it, as the JAX trainer does (the targets and intrinsics
+stay float32: ``engine/train.cast_batch``); evaluation casts nothing beyond
+the model. The train split loads what the model kind needs (ground-truth
+depth for the supervised kinds, input depth for completion, the context
+poses for VelSup); ``validate`` hands the eval step every input of the depth
+network that a batch holds (PackNet-SAN's input depth).
 
 With more than one process (``parallel/mesh.init_distributed``; one
 device a rank, which the caller passes), every rank loads its shard of each

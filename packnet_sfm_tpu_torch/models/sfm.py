@@ -2,12 +2,26 @@
 
 ``SfmModelDef`` holds the networks and the loss configuration;
 ``model_forward`` and ``model_loss`` run them on a batch of NHWC tensors,
-under the profiler ranges ``depth_net``, ``pose_net`` and
-``photometric_loss`` that ``tools/profile_step.py`` reads.
-Ported kinds: ``SelfSupModel`` (pinhole photometric loss, with the random
-left-right flip of the depth network's input during training) and
-``GenericSelfSupModel`` (NRS self-supervised training, no flip); other kinds
-raise ``NotImplementedError`` until their slice lands (ROADMAP.md).
+under the profiler ranges ``depth_net``, ``pose_net``, ``photometric_loss``
+and ``supervised_loss`` that ``tools/profile_step.py`` reads. The kinds
+(``MODEL_KINDS``), as the JAX package defines them:
+
+- ``SfmModel``: the networks only; its loss is 0 (no term);
+- ``SelfSupModel``: the pinhole photometric loss;
+- ``SemiSupModel``: (1 - w) * self-supervised + w * supervised, w =
+  ``supervised_loss_weight``; at w >= 1 the photometric graph is skipped
+  (and ``engine/factory`` builds no pose net);
+- ``SemiSupCompletionModel``: SemiSup on a depth network that also takes
+  ``input_depth`` (PackNet-SAN): the rgb+d branch's supervised term,
+  weighted by ``weight_rgbd * w``, and the network's ``depth_loss``;
+- ``VelSupModel``: self-supervised + ``velocity_loss_weight`` * the
+  velocity loss against the ground-truth ``pose_context``;
+- ``GenericSfmModel`` / ``GenericSelfSupModel``: the NRS networks, with no
+  loss / the generic photometric loss, and no flip.
+
+During training the depth network's inputs (every image-like key of
+``input_keys``: 'rgb', and 'input_depth' for completion) are flipped left
+to right together at random, and its inverse depths flipped back.
 """
 
 from __future__ import annotations
@@ -32,10 +46,15 @@ from packnet_sfm_tpu_torch.losses.photometric import (
     MultiViewPhotometricConfig,
     multiview_photometric_loss,
 )
+from packnet_sfm_tpu_torch.losses.supervised import SupervisedLossConfig, supervised_loss
+from packnet_sfm_tpu_torch.losses.velocity import velocity_loss
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate_image
 
-PORTED_KINDS = ("SelfSupModel", "GenericSelfSupModel")
-# inverse depths that every ported depth network returns, finest first
+MODEL_KINDS = ("SfmModel", "SelfSupModel", "SemiSupModel", "VelSupModel",
+               "SemiSupCompletionModel", "GenericSfmModel", "GenericSelfSupModel")
+SELF_SUP_KINDS = ("SelfSupModel", "SemiSupModel", "VelSupModel", "SemiSupCompletionModel")
+SUPERVISED_KINDS = ("SemiSupModel", "SemiSupCompletionModel")
+# inverse depths that every depth network returns, finest first
 DEPTH_SCALES = 4
 
 
@@ -46,21 +65,42 @@ class SfmModelDef(nn.Module):
                  kind: str = "SelfSupModel",
                  photometric: Optional[MultiViewPhotometricConfig] = None,
                  generic_photometric: Optional[GenericPhotometricConfig] = None,
-                 rotation_mode: str = "euler", flip_lr_prob: float = 0.5,
-                 upsample_depth_maps: bool = False):
+                 supervised: Optional[SupervisedLossConfig] = None,
+                 supervised_loss_weight: float = 0.9, velocity_loss_weight: float = 0.1,
+                 weight_rgbd: float = 1.0, rotation_mode: str = "euler",
+                 flip_lr_prob: float = 0.5, upsample_depth_maps: bool = False,
+                 input_keys: tuple = ("rgb",)):
         super().__init__()
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"model kind {kind!r} is not ported yet; see ROADMAP.md")
+        if kind not in MODEL_KINDS:
+            raise ValueError(f"Unknown model {kind}")
         self.depth_net = depth_net
         self.pose_net = pose_net
         self.kind = kind
         self.photometric = photometric or MultiViewPhotometricConfig()
         self.generic_photometric = generic_photometric or GenericPhotometricConfig()
+        self.supervised = supervised or SupervisedLossConfig()
+        self.supervised_loss_weight = supervised_loss_weight
+        self.velocity_loss_weight = velocity_loss_weight
+        self.weight_rgbd = weight_rgbd
         self.rotation_mode = rotation_mode
         # the generic (NRS) kinds have no flip
         self.flip_lr_prob = 0.0 if kind.startswith("Generic") else flip_lr_prob
         self.upsample_depth_maps = upsample_depth_maps
+        self.input_keys = tuple(input_keys)
+
+    @property
+    def has_loss(self) -> bool:
+        """Whether ``model_loss`` has a term to train: every kind but
+        ``SfmModel`` and ``GenericSfmModel``."""
+        return self.kind not in ("SfmModel", "GenericSfmModel")
+
+    @property
+    def photometric_used(self) -> bool:
+        """Whether ``model_loss`` runs the photometric graph: the
+        self-supervised kinds, except a supervised kind at weight >= 1."""
+        if self.kind not in SELF_SUP_KINDS:
+            return False
+        return not (self.kind in SUPERVISED_KINDS and self.supervised_loss_weight >= 1.0)
 
 
 def _normalize_depth_output(out) -> Dict:
@@ -73,17 +113,23 @@ def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool) ->
 
     The flip is drawn on the host from ``generator`` (a CPU
     ``torch.Generator``), so it is a Python bool: eager PyTorch needs no
-    traced select, the network simply runs on the flipped image and its
-    outputs are flipped back. No generator, no flip.
+    traced select, the network simply runs on the flipped inputs (every one
+    of them: rgb and input_depth alike) and its inverse depths are flipped
+    back. No generator, no flip.
     """
-    rgb = batch["rgb"]
+    inputs = {k: batch[k] for k in model.input_keys if k != "intrinsics" and k in batch}
     do_flip = False
     if train and model.flip_lr_prob > 0.0 and generator is not None:
         do_flip = torch.rand((), generator=generator).item() < model.flip_lr_prob
-    with record_function("depth_net"):
-        out = _normalize_depth_output(model.depth_net(flip_lr(rgb) if do_flip else rgb))
     if do_flip:
-        out["inv_depths"] = [flip_lr(d) for d in out["inv_depths"]]
+        inputs = {k: flip_lr(v) for k, v in inputs.items()}
+    rgb = inputs.pop("rgb")
+    with record_function("depth_net"):
+        out = _normalize_depth_output(model.depth_net(rgb, **inputs))
+    if do_flip:
+        for key in ("inv_depths", "inv_depths_rgbd"):
+            if key in out:
+                out[key] = [flip_lr(d) for d in out[key]]
     if train and model.upsample_depth_maps:
         full = out["inv_depths"][0].shape[1:3]
         out["inv_depths"] = [interpolate_image(d, full, mode="nearest")
@@ -95,9 +141,11 @@ def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
                   generator: Optional[torch.Generator] = None) -> Dict:
     """Run the depth (+ pose) networks on a batch.
 
-    batch keys (NHWC): 'rgb' [B,H,W,3]; optional 'rgb_context' list. Returns
-    'inv_depths' (list, finest first), 'ray_surface' for the NRS network, and
-    'poses' (list of [B,4,4] target->context transforms, or None). ``train``
+    batch keys (NHWC): 'rgb' [B,H,W,3]; optional 'input_depth' [B,H,W,1]
+    (where ``input_keys`` names it) and 'rgb_context' list. Returns
+    'inv_depths' (list, finest first), 'ray_surface' for the NRS network,
+    'inv_depths_rgbd' and 'depth_loss' for PackNet-SAN's training passes,
+    and 'poses' (list of [B,4,4] target->context transforms, or None). ``train``
     sets the modules' mode: in training, BatchNorm moves its running
     statistics. ``generator`` draws the training flip (see
     ``_depth_with_flip``).
@@ -113,13 +161,26 @@ def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
     return out
 
 
+def depth2inv(depth: torch.Tensor) -> torch.Tensor:
+    """Depth -> inverse depth, 0 where the depth is not positive."""
+    inv = 1.0 / torch.clamp(depth, min=1e-6)
+    return torch.where(depth <= 0.0, torch.zeros_like(inv), inv)
+
+
 def scales_used(model: SfmModelDef, num_scales: Optional[int] = None) -> int:
     """How many of the depth network's inverse depths ``model_loss`` reads:
-    the generic loss's scale count, else ``num_scales`` or the photometric
-    config's."""
+    the generic loss's scale count for NRS; else the largest of the
+    photometric scale count (``num_scales`` or the config's), where the
+    photometric graph runs, and the supervised one, where a supervised
+    term runs. 0 for the kinds without a loss."""
     if model.kind == "GenericSelfSupModel":
         return model.generic_photometric.num_scales
-    return num_scales or model.photometric.num_scales
+    used = 0
+    if model.photometric_used:
+        used = num_scales or model.photometric.num_scales
+    if model.kind in SUPERVISED_KINDS:
+        used = max(used, model.supervised.supervised_num_scales)
+    return used
 
 
 def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
@@ -130,7 +191,9 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     ``progress`` is the Python float fraction of training done; the NRS
     projection temperature and ray-surface blend are computed from it on the
     host. ``num_scales`` overrides the photometric scale count (the trainer
-    resolves the progressive schedule, ``losses/progressive.py``).
+    resolves the progressive schedule, ``losses/progressive.py``). The
+    kinds without a loss (``SfmModel``, ``GenericSfmModel``) return a 0
+    that needs no gradient.
     """
     if isinstance(progress, torch.Tensor):
         raise TypeError("progress must be a Python float")
@@ -145,13 +208,43 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
                 canonical_pinhole_rays(h, w, device=image.device), out["poses"],
                 model.generic_photometric, float(progress),
                 projection_temperature(progress))
-    else:
+        metrics["loss"] = loss
+        return loss, (metrics, out)
+
+    metrics: Dict = {}
+    loss = torch.zeros((), device=image.device)
+    supervised = model.kind in SUPERVISED_KINDS
+    w = model.supervised_loss_weight
+    if model.photometric_used:
         photo_cfg = model.photometric
         if num_scales is not None and num_scales != photo_cfg.num_scales:
             photo_cfg = dataclasses.replace(photo_cfg, num_scales=num_scales)
         with record_function("photometric_loss"):
-            loss, metrics = multiview_photometric_loss(
+            self_loss, self_metrics = multiview_photometric_loss(
                 image, context, out["inv_depths"], batch["intrinsics"], out["poses"],
                 photo_cfg)
+        metrics.update(self_metrics)
+        loss = loss + ((1.0 - w) * self_loss if supervised else self_loss)
+
+    if supervised:
+        with record_function("supervised_loss"):
+            gt_inv = depth2inv(batch["depth"])
+            sup_loss, sup_metrics = supervised_loss(out["inv_depths"], gt_inv, model.supervised)
+            metrics.update(sup_metrics)
+            loss = loss + w * sup_loss
+            if "inv_depths_rgbd" in out:
+                # the rgb+d branch's supervision and the feature consistency
+                sup_rgbd, _ = supervised_loss(out["inv_depths_rgbd"], gt_inv, model.supervised)
+                metrics["supervised_loss_rgbd"] = sup_rgbd
+                loss = loss + model.weight_rgbd * w * sup_rgbd
+                if "depth_loss" in out:
+                    metrics["depth_loss"] = out["depth_loss"]
+                    loss = loss + out["depth_loss"]
+
+    if model.kind == "VelSupModel":
+        vel_loss, vel_metrics = velocity_loss(out["poses"], batch["pose_context"])
+        metrics.update(vel_metrics)
+        loss = loss + model.velocity_loss_weight * vel_loss
+
     metrics["loss"] = loss
     return loss, (metrics, out)

@@ -1,9 +1,9 @@
 """DepthResNet (port of ``nn/depth_resnet.py``): the ResNet encoder and the
 monodepth2 depth decoder, with the sigmoid disparities scaled to inverse
 depth. The submodules keep the flax names ``encoder`` and ``decoder`` so
-that ``utils/convert.from_jax`` maps the weights. Version '18' or '18pt'
+that ``utils/convert.from_jax`` maps the weights. Version '<N>' or '<N>pt'
 (ImageNet encoder weights, grafted by ``engine/checkpoint.
-load_pretrained_encoder``); only ResNet-18 is ported (``nn/resnet.py``).
+load_pretrained_encoder``), N in 18, 34, 50, 101, 152.
 """
 
 from __future__ import annotations
@@ -11,7 +11,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from packnet_sfm_tpu_torch.nn.resnet import DepthDecoder, ResNetEncoder, init_decoder_weights
+from packnet_sfm_tpu_torch.nn.resnet import (
+    DepthDecoder,
+    ResNetEncoder,
+    init_decoder_weights,
+    parse_resnet_version,
+)
 
 
 def disp_to_depth(disp: torch.Tensor, min_depth: float = 0.1, max_depth: float = 100.0):
@@ -29,8 +34,8 @@ class DepthResNet(nn.Module):
     def __init__(self, version: str = "18", min_depth: float = 0.1, max_depth: float = 100.0):
         super().__init__()
         self.min_depth, self.max_depth = min_depth, max_depth
-        self.encoder = ResNetEncoder(num_layers=int(version.rstrip("pt") or "18"))
-        self.decoder = DepthDecoder()
+        self.encoder = ResNetEncoder(num_layers=parse_resnet_version(version))
+        self.decoder = DepthDecoder(self.encoder.num_ch_enc)
 
     def init_weights(self, gen: torch.Generator) -> None:
         self.encoder.init_weights(gen)

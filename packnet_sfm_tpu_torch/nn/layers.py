@@ -69,11 +69,25 @@ class FastGroupNorm(nn.Module):
         return out.to(out_dtype)
 
 
-def check_dropout(dropout) -> None:
-    """Dropout is off (None or 0) on every ported path."""
-    if dropout:
-        raise NotImplementedError(
-            f"dropout {dropout} is not ported yet (ROADMAP.md); use 0.0")
+class ShortcutDropout(nn.Module):
+    """The dropout on a residual unit's shortcut, as the JAX package builds
+    it: the identity in eval and infer. Training with it raises, because
+    the JAX package cannot train it either: its ``model_loss`` applies the
+    network without a dropout generator, and flax refuses a
+    non-deterministic ``Dropout`` without one (``ROADMAP.md`` §3)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError(
+                f"dropout {self.rate} in a training forward: the JAX package cannot train "
+                "it either (its model_loss passes no dropout generator, and flax raises "
+                "InvalidRngError), so the port refuses it; set depth_net.dropout to 0.0 "
+                "(eval and infer run it as the identity)")
+        return x
 
 
 def init_conv_weights(module: nn.Module, gen: torch.Generator) -> None:
@@ -106,15 +120,18 @@ class ResidualConv(nn.Module):
 
     def __init__(self, cin: int, features: int, stride: int, dropout=None, dtype=None):
         super().__init__()
-        check_dropout(dropout)
         self.Conv2dBlock_0 = Conv2dBlock(cin, features, 3, stride, dtype)
         self.Conv2dBlock_1 = Conv2dBlock(features, features, 3, 1, dtype)
         self.conv = Conv2d(cin, features, 1, stride=stride, compute_dtype=dtype)
         self.norm = FastGroupNorm(features, num_groups=16, epsilon=1e-5, dtype=dtype)
+        self.dropout = ShortcutDropout(dropout) if dropout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.Conv2dBlock_1(self.Conv2dBlock_0(x))
-        return F.elu(self.norm(out + self.conv(x)))
+        shortcut = self.conv(x)
+        if self.dropout is not None:
+            shortcut = self.dropout(shortcut)
+        return F.elu(self.norm(out + shortcut))
 
 
 class ResidualBlock(nn.Module):

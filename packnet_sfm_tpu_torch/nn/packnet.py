@@ -30,7 +30,6 @@ from packnet_sfm_tpu_torch.nn.layers import (
     Conv2dBlock,
     InvDepthHead,
     ResidualBlock,
-    check_dropout,
     init_conv_weights,
 )
 from packnet_sfm_tpu_torch.ops.fold_conv import channel_conv3d, fused_pack_conv
@@ -118,7 +117,6 @@ class PackNetBase(nn.Module):
                  out_channels: int = 1, remat: bool = False, fuse: bool = True,
                  pack_mode: str = "auto", dtype=None):
         super().__init__()
-        check_dropout(dropout)
         self.version, self.remat, self.dtype = version, remat, dtype
         v, no, ni, d = version, out_channels, self.ni, self.num_3d_feat
         n1, n2, n3, n4, n5 = self.channels

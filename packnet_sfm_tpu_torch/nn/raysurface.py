@@ -14,14 +14,15 @@ from packnet_sfm_tpu_torch.nn.resnet import (
     DepthDecoder,
     ResNetEncoder,
     init_decoder_weights,
+    parse_resnet_version,
 )
 
 
 class RaySurfaceDecoder(DepthDecoder):
     """The DepthDecoder trunk without disp heads; tanh, 3 channels, scale 0."""
 
-    def __init__(self):
-        super().__init__(heads=False)
+    def __init__(self, num_ch_enc):
+        super().__init__(num_ch_enc, heads=False)
         self.raysurfconv_0 = Conv3x3Refl(self.num_ch_dec[0], 3)
 
     def forward(self, features: list) -> torch.Tensor:
@@ -37,9 +38,9 @@ class RaySurfaceResNet(nn.Module):
                  max_depth: float = 100.0):
         super().__init__()
         self.min_depth, self.max_depth = min_depth, max_depth
-        self.encoder = ResNetEncoder(num_layers=int(version.rstrip("pt") or "18"))
-        self.decoder = DepthDecoder()
-        self.ray_decoder = RaySurfaceDecoder()
+        self.encoder = ResNetEncoder(num_layers=parse_resnet_version(version))
+        self.decoder = DepthDecoder(self.encoder.num_ch_enc)
+        self.ray_decoder = RaySurfaceDecoder(self.encoder.num_ch_enc)
 
     def init_weights(self, gen: torch.Generator) -> None:
         self.encoder.init_weights(gen)

@@ -1,9 +1,10 @@
 """ResNet encoder and monodepth2 depth decoder (port of ``nn/resnet.py``).
 
 Modules take and return NCHW tensors; the networks that use them
-(``nn/raysurface.py``) keep NHWC at their public boundary. Submodule names
-follow the flax module tree so ``utils/convert.from_jax`` maps weights by
-name. This slice ports ResNet-18 (BasicBlock) only.
+(``nn/{depth_resnet,raysurface,pose_resnet}.py``) keep NHWC at their public
+boundary. Submodule names follow the flax module tree so
+``utils/convert.from_jax`` maps weights by name. ResNet-18/34 are built of
+``BasicBlock``, 50/101/152 of ``Bottleneck`` (expansion 4).
 """
 
 from __future__ import annotations
@@ -78,6 +79,8 @@ class BatchNorm(nn.Module):
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, features, 3, stride=stride, padding=1, bias=False)
@@ -96,26 +99,73 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNetEncoder(nn.Module):
-    """ResNet-18 feature pyramid: 5 features at strides (2, 4, 8, 16, 32)."""
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 to 4x ``features``, with the 1x1
+    projection shortcut where the shape changes."""
 
-    num_ch_enc = (64, 64, 128, 256, 512)
+    expansion = 4
 
-    def __init__(self, num_layers: int = 18):
+    def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False):
         super().__init__()
-        if num_layers != 18:
-            raise NotImplementedError(
-                f"ResNet-{num_layers} is not ported yet (ROADMAP.md); only 18 is")
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        out = features * self.expansion
+        self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = nn.Conv2d(features, features, 3, stride=stride, padding=1, bias=False)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = nn.Conv2d(features, out, 1, bias=False)
+        self.bn3 = BatchNorm(out)
+        if downsample:
+            self.downsample_conv = nn.Conv2d(cin, out, 1, stride=stride, bias=False)
+            self.downsample_bn = BatchNorm(out)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = self.downsample_bn(self.downsample_conv(x)) if self.downsample else x
+        return F.relu(out + identity)
+
+
+# depth -> (block, blocks per stage)
+RESNET_CONFIGS = {
+    18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
+    50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+    152: (Bottleneck, (3, 8, 36, 3)),
+}
+
+
+def parse_resnet_version(version: str) -> int:
+    """A DepthResNet/RaySurfaceResNet version ('18', '50pt', ...) -> its
+    layer count, as the JAX package parses it (``rstrip('pt')``, '18' where
+    nothing is left)."""
+    return int(version.rstrip("pt") or "18")
+
+
+class ResNetEncoder(nn.Module):
+    """ResNet feature pyramid: 5 features at strides (2, 4, 8, 16, 32), of
+    ``num_ch_enc`` channels. ``num_input_images`` > 1 widens conv1 to
+    3 * n channels for stacked frames (PoseResNet)."""
+
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+        super().__init__()
+        if num_layers not in RESNET_CONFIGS:
+            raise ValueError(f"no ResNet-{num_layers}; one of {sorted(RESNET_CONFIGS)}")
+        block, self.layers = RESNET_CONFIGS[num_layers]
+        exp = block.expansion
+        self.num_ch_enc = (64, 64 * exp, 128 * exp, 256 * exp, 512 * exp)
+        self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         cin = 64
         for li, width in enumerate((64, 128, 256, 512)):
             stride = 1 if li == 0 else 2
-            for bi in range(2):
-                need_ds = bi == 0 and (stride != 1 or cin != width)
-                self.add_module(f"layer{li + 1}_{bi}", BasicBlock(
+            for bi in range(self.layers[li]):
+                need_ds = bi == 0 and (stride != 1 or cin != width * exp)
+                self.add_module(f"layer{li + 1}_{bi}", block(
                     cin, width, stride if bi == 0 else 1, need_ds))
-                cin = width
+                cin = width * exp
 
     def init_weights(self, gen: torch.Generator) -> None:
         for m in self.modules():
@@ -130,8 +180,8 @@ class ResNetEncoder(nn.Module):
         f0 = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(f0, 3, stride=2, padding=1)
         feats = [f0]
-        for li in range(4):
-            for bi in range(2):
+        for li, n in enumerate(self.layers):
+            for bi in range(n):
                 x = getattr(self, f"layer{li + 1}_{bi}")(x)
             feats.append(x)
         return feats
@@ -183,15 +233,16 @@ def init_decoder_weights(module: nn.Module, gen: torch.Generator) -> None:
 
 
 class DepthDecoder(nn.Module):
-    """monodepth2 depth decoder over the ResNet-18 pyramid: sigmoid disp
-    heads at the 4 finest scales (``heads=False`` builds the trunk only).
-    Returns [disp0 (full res), disp1, disp2, disp3]."""
+    """monodepth2 depth decoder over an encoder pyramid of ``num_ch_enc``
+    channels: sigmoid disp heads at the 4 finest scales (``heads=False``
+    builds the trunk only). Returns [disp0 (full res), disp1, disp2,
+    disp3]."""
 
     num_ch_dec = (16, 32, 64, 128, 256)
 
-    def __init__(self, heads: bool = True):
+    def __init__(self, num_ch_enc, heads: bool = True):
         super().__init__()
-        enc, dec = ResNetEncoder.num_ch_enc, self.num_ch_dec
+        enc, dec = num_ch_enc, self.num_ch_dec
         cin = enc[-1]
         for i in range(4, -1, -1):
             self.add_module(f"upconv_{i}_0", ConvBlockRefl(cin, dec[i]))
@@ -214,3 +265,26 @@ class DepthDecoder(nn.Module):
         disps = {i: torch.sigmoid(getattr(self, f"dispconv_{i}")(x))
                  for i, x in self._trunk(features) if i < 4}
         return [disps[0], disps[1], disps[2], disps[3]]
+
+
+class PoseDecoder(nn.Module):
+    """monodepth2 pose decoder on the last encoder feature: squeeze (1x1),
+    pose_0-1 (3x3) with ReLU, pose_2 (1x1) to 6 values a frame, the spatial
+    mean, scaled by 0.01. Returns (axisangle, translation), each [B,
+    ``num_frames``, 1, 3]."""
+
+    def __init__(self, cin: int, num_frames: int = 2):
+        super().__init__()
+        self.num_frames = num_frames
+        self.squeeze = nn.Conv2d(cin, 256, 1)
+        self.pose_0 = nn.Conv2d(256, 256, 3, padding=1)
+        self.pose_1 = nn.Conv2d(256, 256, 3, padding=1)
+        self.pose_2 = nn.Conv2d(256, 6 * num_frames, 1)
+
+    def forward(self, last_feature: torch.Tensor):
+        x = F.relu(self.squeeze(last_feature))
+        x = F.relu(self.pose_0(x))
+        x = F.relu(self.pose_1(x))
+        x = self.pose_2(x).mean(dim=(2, 3))
+        x = 0.01 * x.reshape(-1, self.num_frames, 1, 6)
+        return x[..., :3], x[..., 3:]

@@ -1,9 +1,9 @@
 """Where the time of a train or eval step goes on the card.
 
-    python -m packnet_sfm_tpu_torch.tools.profile_step [--config kitti|omnicam]
+    python -m packnet_sfm_tpu_torch.tools.profile_step [--config kitti|omnicam|san]
         [--eval] [--dtype config|float32|bfloat16] [--steps 5] [--out FILE]
 
-Builds one of the two ported training configurations as chip_smoke.py does
+Builds one of three training configurations as chip_smoke.py does
 (synthetic samples, random weights from seed 0, TF32 off for float32 work),
 computing in the config's ``arch.dtype`` (bfloat16 for both) unless
 ``--dtype`` says otherwise; ``--dtype float32`` gives what the profiles
@@ -11,7 +11,11 @@ before the bfloat16 policy measured:
 - ``kitti``: configs/train_kitti.yaml, SelfSupModel, PackNet01-1A + PoseNet,
   192x640, batch 4, device jitter and the training flip on;
 - ``omnicam``: configs/train_omnicam.yaml, GenericSelfSupModel,
-  RaySurfaceResNet-18 + PoseNet, 384x384, batch 1, progress 0.5.
+  RaySurfaceResNet-18 + PoseNet, 384x384, batch 1, progress 0.5;
+- ``san``: configs/train_packnet_san_kitti.yaml, SemiSupCompletionModel,
+  PackNetSAN01-1A (no pose net at supervised weight 1), 352x1216, batch 1:
+  the rgb and the rgb+d passes, ground truth at SAN_GT_DENSITY and input
+  depth at SAN_INPUT_DENSITY of the pixels, the training flip on.
 With ``--eval`` (kitti only) it profiles the flip-fused eval step instead:
 B = 1, rgb 192x640, ground truth at eigen_test's 375x1242 with 4% of its
 pixels valid, the Garg crop, as chip_smoke.py's phase 5; its forward is the
@@ -24,7 +28,8 @@ time; one stream, so kernels do not overlap). Convolution kernels are split
 into 2D and 3D by the rank of the launching operator's input; the forward
 kernels are also summed by the model's profiler ranges (depth_net, pose_net,
 photometric_loss: the warp, SSIM and reduction chain of the loss;
-depth_metrics in eval). The
+supervised_loss; depth_metrics in eval; sparse_branch, PackNet-SAN's lidar
+encoder inside depth_net, counted apart from it). The
 profiler slows the host, so the wall time and busy share here are those of a
 profiled step; chip_smoke.py times the step without it. Needs a CUDA device.
 """
@@ -78,8 +83,13 @@ GROUPS = (
 CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward",
             "aten::cudnn_convolution_transpose", "aten::_convolution",
             "aten::convolution", "aten::conv2d", "aten::conv3d")
-REGIONS = ("depth_net", "pose_net", "photometric_loss", "depth_metrics")
+REGIONS = ("depth_net", "sparse_branch", "pose_net", "photometric_loss", "supervised_loss",
+           "depth_metrics")
 EVAL_GT, EVAL_GT_DENSITY = (375, 1242), 0.04
+# PackNet-SAN's train crop (crop_train_borders), and the shares of its
+# pixels with ground truth (KITTI's accumulated groundtruth maps) and with
+# input depth (one velodyne sweep)
+SAN_SHAPE, SAN_GT_DENSITY, SAN_INPUT_DENSITY = (352, 1216), 0.16, 0.04
 
 
 def group_of(name: str) -> str:
@@ -139,39 +149,62 @@ def model_dtype(cfg, dtype: str):
             "bfloat16": torch.bfloat16}[dtype]
 
 
+def san_batches(n: int, h: int, w: int, bs: int = 1):
+    """n host batches of PackNet-SAN's train step: Synthetic rgb [bs, h, w,
+    3], its depth at SAN_GT_DENSITY as 'depth' and at SAN_INPUT_DENSITY as
+    'input_depth'."""
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
+
+    ds = SyntheticSfmDataset(length=n * bs, height=h, width=w, seed=0, back_context=0,
+                             forward_context=0, depth_density=SAN_GT_DENSITY)
+    rng = np.random.default_rng(0)
+    batches = []
+    for i in range(n):
+        samples = [ds[i * bs + j] for j in range(bs)]
+        depth = np.stack([s["depth"] for s in samples])
+        keep = rng.uniform(size=depth.shape) < SAN_INPUT_DENSITY / SAN_GT_DENSITY
+        batches.append({"rgb": np.stack([s["rgb"] for s in samples]), "depth": depth,
+                        "input_depth": (depth * keep).astype(np.float32)})
+    return batches
+
+
 def build(config: str, n: int, device, dtype: str):
-    """run(i) of train step i of one ported training configuration."""
+    """run(i) of train step i of one training configuration."""
     from packnet_sfm_tpu_torch.core.config import (
-        KITTI, OMNICAM, config_from_dict, parse_train_config)
+        KITTI, OMNICAM, SAN_KITTI, config_from_dict, parse_train_config)
     from packnet_sfm_tpu_torch.datasets.augmentations import draw_jitter_params
     from packnet_sfm_tpu_torch.datasets.synthetic import (
         SyntheticSfmDataset, collate_train_batch)
     from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
     from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
 
-    cfg = parse_train_config(config_from_dict(KITTI if config == "kitti" else OMNICAM))
-    h, w = cfg.datasets.augmentation.image_shape
+    raw = {"kitti": KITTI, "omnicam": OMNICAM, "san": SAN_KITTI}[config]
+    cfg = parse_train_config(config_from_dict(raw))
     bs = cfg.datasets.train.batch_size
-    ds = SyntheticSfmDataset(length=n * bs, height=h, width=w, seed=0)
-    rng = np.random.default_rng(0)
-    batches = []
-    for i in range(n):
-        samples = [ds[i * bs + j] for j in range(bs)]
-        if config == "kitti":
-            jitter = [draw_jitter_params(cfg.datasets.augmentation.jittering, rng)
-                      for _ in samples]
-            batches.append(collate_train_batch(samples, jitter))
-        else:
-            batch = collate_train_batch(samples)
-            del batch["intrinsics"]
-            batches.append(batch)
+    if config == "san":
+        batches = san_batches(n, *SAN_SHAPE, bs)
+    else:
+        h, w = cfg.datasets.augmentation.image_shape
+        ds = SyntheticSfmDataset(length=n * bs, height=h, width=w, seed=0)
+        rng = np.random.default_rng(0)
+        batches = []
+        for i in range(n):
+            samples = [ds[i * bs + j] for j in range(bs)]
+            if config == "kitti":
+                jitter = [draw_jitter_params(cfg.datasets.augmentation.jittering, rng)
+                          for _ in samples]
+                batches.append(collate_train_batch(samples, jitter))
+            else:
+                batch = collate_train_batch(samples)
+                del batch["intrinsics"]
+                batches.append(batch)
     dt = model_dtype(cfg, dtype)
     model = setup_model(cfg.model, device=device, seed=0, dtype=dt)
     optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, n)
     step = make_train_step(model, optimizer, scheduler,
                            generator=torch.Generator().manual_seed(0),
                            compute_dtype=dt or torch.float32)
-    progress = 0.0 if config == "kitti" else 0.5
+    progress = 0.5 if config == "omnicam" else 0.0
     acc = zero_metrics(device)
 
     def run(i):
@@ -181,7 +214,7 @@ def build(config: str, n: int, device, dtype: str):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("kitti", "omnicam"), default="omnicam")
+    ap.add_argument("--config", choices=("kitti", "omnicam", "san"), default="omnicam")
     ap.add_argument("--eval", action="store_true", help="profile the eval step (kitti)")
     ap.add_argument("--dtype", choices=("config", "float32", "bfloat16"), default="config",
                     help="compute dtype: the config's arch.dtype, or this one")

@@ -13,7 +13,13 @@ flax module tree, so the mapping is by name:
 - BatchNorm ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
   ``running_mean``/``running_var`` (flax's inner ``BatchNorm_0`` level goes);
 - GroupNorm ``scale``/``bias`` -> ``weight``/``bias``;
+- the sparse branch's MaskedBatchNorm ``scale``/``bias``/``mean``/``var``
+  (no inner level) -> ``weight``/``bias``/``running_mean``/``running_var``;
+- PackNet-SAN's level vectors ``weight``/``bias`` [5] keep their names;
 - flax auto-names ``Conv_0``/``GroupNorm_0`` -> ``conv``/``norm``.
+
+The ResNet family's Bottleneck blocks and PoseResNet's two-image conv1
+(kernel [7, 7, 6, 64]) map by the same rules.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 _RENAME = {"Conv_0": "conv", "GroupNorm_0": "norm"}
 # flax kernel axes -> PyTorch weight axes, by kernel rank.
 _KERNEL_AXES = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+_LEAF = {"kernel": "weight", "scale": "weight", "weight": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 
 

@@ -56,6 +56,13 @@ on) on the card against the CPU from the same seed: the epoch's mean loss
 within 1e-3 relative, as chip_smoke.py holds the card's first two steps, and
 the weights' update over the two steps at a cosine of 0.99 or more; the
 warp kernels launch 4 times a step each.
+
+PackNet-SAN's sparse branch on the card against the CPU, same inputs: the
+masked max pool exactly (values, mask and the gradient, which goes to the
+window's largest entry on both), MaskedBatchNorm's training forward, its
+running statistics and the gradient of its input within 1e-5 of their
+largest (cuDNN and the CPU sum the active sites in other orders); no kernel
+of the port launches on this path.
 """
 
 import pytest
@@ -383,3 +390,29 @@ def test_group_norm_at_large_means_on_the_card(device, mean, std, layout):
     with torch.no_grad():
         got = FastGroupNorm(64).to(device)(nchw.to(device)).permute(0, 2, 3, 1).cpu().double()
     assert np.abs(got.numpy() - want).max() <= 4 * mean * 2.0 ** -24 / std
+
+
+@pytest.mark.parametrize("hw", [(13, 18), (88, 304)])
+def test_masked_pool_and_batch_norm_on_the_card_match_the_cpu(device, hw):
+    from packnet_sfm_tpu_torch.nn import sparse
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 8) + hw, generator=gen) * 2.0 + 1.0
+    mask = (torch.rand((2, 1) + hw, generator=gen) < 0.1).float()
+    out = {}
+    for dev in ("cpu", device):
+        xd = x.detach().to(dev).requires_grad_()
+        pooled, new_mask = sparse.masked_max_pool(xd, mask.to(dev))
+        bn = sparse.MaskedBatchNorm(8).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 2.0, 8))
+            bn.bias.copy_(torch.linspace(-1.0, 1.0, 8))
+        y = bn(pooled, new_mask)
+        (y * torch.linspace(-1, 1, y.numel()).reshape(y.shape).to(dev)).sum().backward()
+        out[str(dev)] = [t.detach().cpu() for t in (pooled, new_mask, y, bn.running_mean,
+                                                    bn.running_var, xd.grad)]
+    cpu, card = out["cpu"], out[str(device)]
+    for got, want in zip(card[:2], cpu[:2]):
+        assert torch.equal(got, want)
+    for got, want in zip(card[2:], cpu[2:]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))

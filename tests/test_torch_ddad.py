@@ -263,3 +263,25 @@ def test_two_camera_epoch_through_the_port_trainer(fresh_tree):
     (ds,) = setup_dataset(cfg.datasets.validation, "validation", cfg.datasets.augmentation)
     assert isinstance(ds, ddad.DDADDataset) and ds.cameras == CAMS and len(ds) == 4
     assert ds.index == [(0, k) for k in range(4)]
+
+
+def test_input_depth_is_the_named_lidar_projected(ddad_root):
+    """ROADMAP.md §3 (p): the JAX package's DGP reader takes
+    ``input_depth_type`` and drops it (no 'input_depth' in its samples, and
+    ``setup_dataset`` never passes it); the port projects the named lidar
+    into each camera as it projects the ground truth's, through the same
+    cache, and ``setup_dataset`` passes the config's."""
+    kw = dict(cameras=CAMS, depth_type="LIDAR", input_depth_type="LIDAR")
+    theirs = jddad.DDADDataset(ddad_root, data_transform=_as_read, **kw)
+    assert "input_depth" not in theirs[0]
+    ours = ddad.DDADDataset(ddad_root, data_transform=_as_read, **kw)
+    for i in range(len(ours)):
+        sample = ours[i]
+        assert sample["input_depth"].shape == sample["depth"].shape
+        np.testing.assert_array_equal(sample["input_depth"], sample["depth"])
+        np.testing.assert_array_equal(sample["depth"], theirs[i]["depth"])
+    cfg = config_from_dict({"datasets": {"test": {
+        "dataset": ["DGP"], "path": [ddad_root], "split": ["val"], "depth_type": ["LIDAR"],
+        "input_depth_type": ["LIDAR"], "cameras": [CAMS]}}})
+    (ds,) = setup_dataset(cfg.datasets.test, "test", cfg.datasets.augmentation)
+    assert "input_depth" in ds[0]

@@ -116,8 +116,11 @@ def test_port_init_draws_from_generator():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb
         assert torch.equal(va, vb), ka
-    with pytest.raises(NotImplementedError):
-        RaySurfaceResNet("34")
+    # the whole ResNet family builds (tests/test_torch_resnet_family.py holds
+    # it to JAX); a depth that no ResNet has is refused
+    assert RaySurfaceResNet("34").encoder.num_ch_enc == (64, 64, 128, 256, 512)
+    with pytest.raises(ValueError, match="no ResNet-20"):
+        RaySurfaceResNet("20")
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])

@@ -197,8 +197,14 @@ def test_residual_block_matches_jax():
     got = port(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert tuple(got.shape) == (2, 4, 6, 32)
     _close(got, net.apply(variables, x, train=True))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tlayers.ResidualBlock(16, 32, 3, 2, dropout=0.5)
+    # dropout builds, is the identity in eval, and refuses a training
+    # forward (JAX's model_loss gives flax no dropout generator)
+    dropped = tlayers.ResidualBlock(16, 32, 3, 2, dropout=0.5)
+    dropped.load_state_dict(port.state_dict(), strict=True)
+    _close(dropped.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1),
+           net.apply(variables, x, train=True))
+    with pytest.raises(RuntimeError, match="dropout"):
+        dropped.train()(torch.from_numpy(x).permute(0, 3, 1, 2))
     tlayers.ResidualBlock(16, 32, 1, 1, dropout=0.0)
 
 

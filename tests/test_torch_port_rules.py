@@ -6,8 +6,9 @@
   default and raise without it, unless the caller asks for the CPU; the
   kernel wrappers raise on a non-CUDA tensor;
 - its own copies of host modules agree with the JAX package's, exactly: the
-  OMNICAM, KITTI, DDAD, EVAL_KITTI, OVERFIT_SYNTHETIC and
-  OVERFIT_PACKNET_SYNTHETIC dicts with their yaml files, the synthetic
+  OMNICAM, KITTI, DDAD, EVAL_KITTI, OVERFIT_SYNTHETIC,
+  OVERFIT_PACKNET_SYNTHETIC, OVERFIT_SUPERVISED, OVERFIT_KITTI, SAN_KITTI
+  and SAN_DDAD dicts with their yaml files, the synthetic
   dataset sample for sample (its train split too), the eval slice's copies
   (eval transform, depth resizes, crop borders, collate, the loader's batch
   plan and epochs, depth files, the colormap, image decode), the training
@@ -18,10 +19,11 @@
   and ctypes types that agree with them; the readers in
   tests/test_torch_{datasets,ddad,native}.py);
 - ``setup_dataset`` builds the KITTI, Image and DGP readers for every split;
-- what is not ported yet refuses with a pointer to ROADMAP.md (ResNets
-  other than 18, the S3 sync; bfloat16 and multi-process training are
-  accepted), and a missing Pillow or matplotlib raises ImportError only
-  where one is used;
+- every config of configs/ builds; a network or kind that neither package
+  knows raises ValueError, dropout refuses a training forward, what is not
+  ported yet refuses with a pointer to ROADMAP.md (the S3 sync; bfloat16
+  and multi-process training are accepted), and a missing Pillow or
+  matplotlib raises ImportError only where one is used;
 - the package calls no library warp: no source of it mentions
   ``F.grid_sample``;
 - every ``extern "C"`` launcher of ``csrc/*.cu`` has its ctypes argument
@@ -42,6 +44,7 @@ import torch
 from packnet_sfm_tpu_torch.core.config import (
     KITTI,
     OMNICAM,
+    SAN_KITTI,
     config_from_dict,
     load_config,
     parse_train_config,
@@ -78,7 +81,8 @@ def test_importing_the_port_pulls_in_no_jax():
     assert len(MODULES) >= 20
     for module in ("datasets.kitti", "datasets.kitti_utils", "datasets.image_folder",
                    "datasets.ddad", "models.batch_utils", "native", "parallel",
-                   "parallel.mesh", "parallel.scaling"):
+                   "parallel.mesh", "parallel.scaling", "nn.pose_resnet", "nn.sparse",
+                   "nn.packnet_san", "losses.supervised", "losses.velocity"):
         assert f"packnet_sfm_tpu_torch.{module}" in MODULES
 
 
@@ -107,20 +111,42 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, config):
 
 
 def test_unported_networks_and_kinds_are_refused():
-    for name, version in (("DepthResNet", "50"), ("DepthResNet", "34pt"), ("PackNetSAN01", "1A")):
+    """Nothing that the JAX package builds is refused any more: every
+    network and kind builds (``test_every_config_builds``), and a name that
+    neither package knows raises ``ValueError`` as the JAX factory does.
+    Dropout builds and evaluates, and refuses a training forward, as JAX in
+    effect does (``tests/test_torch_model_kinds.py``)."""
+    for net, name in (("depth_net", "DepthResNet9"), ("pose_net", "PoseVGG")):
         cfg = config_from_dict(KITTI)
-        cfg.model.depth_net.name, cfg.model.depth_net.version = name, version
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.model[net].name = name
+        with pytest.raises(ValueError, match="Unknown"):
             setup_model(cfg.model, device="cpu")
     cfg = config_from_dict(KITTI)
-    cfg.model.name = "SemiSupModel"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.model.name = "FullySupModel"
+    with pytest.raises(ValueError, match="Unknown model"):
         setup_model(cfg.model, device="cpu")
     cfg = config_from_dict(KITTI)
     cfg.model.depth_net.name = "PackNetSlim01"
     cfg.model.depth_net.dropout = 0.5
-    with pytest.raises(NotImplementedError, match="dropout"):
-        setup_model(cfg.model, device="cpu")
+    model = setup_model(cfg.model, device="cpu")
+    with pytest.raises(RuntimeError, match="JAX package cannot train"):
+        model.depth_net.train()(torch.rand(1, 64, 96, 3))
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "configs").glob("*.yaml")),
+                         ids=lambda p: p.stem)
+def test_every_config_builds(path):
+    """setup_model builds every config of configs/ on the CPU, the networks
+    and kind it names, the pose net dropped where the JAX factory drops it."""
+    pytest.importorskip("yaml")
+    cfg = load_config(str(path))
+    model = setup_model(cfg.model, device="cpu")
+    assert model.kind == cfg.model.name
+    assert type(model.depth_net).__name__ == cfg.model.depth_net.name
+    drop = (cfg.model.name in ("SemiSupModel", "SemiSupCompletionModel")
+            and cfg.model.loss.supervised_loss_weight >= 1.0)
+    want = None if drop or not cfg.model.pose_net.name else cfg.model.pose_net.name
+    assert (model.pose_net and type(model.pose_net).__name__) == want
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():
@@ -240,7 +266,10 @@ def test_omnicam_matches_the_yaml():
     assert parse_train_config(built).prepared
 
 
-@pytest.mark.parametrize("name,yaml_name", [("DDAD", "train_ddad"), ("EVAL_KITTI", "eval_kitti")])
+@pytest.mark.parametrize("name,yaml_name", [
+    ("DDAD", "train_ddad"), ("EVAL_KITTI", "eval_kitti"),
+    ("OVERFIT_SUPERVISED", "overfit_packnet_supervised"), ("OVERFIT_KITTI", "overfit_kitti"),
+    ("SAN_KITTI", "train_packnet_san_kitti"), ("SAN_DDAD", "train_packnet_san_ddad")])
 def test_data_configs_match_the_yaml(name, yaml_name):
     from packnet_sfm_tpu_torch.core import config
 
@@ -377,6 +406,16 @@ def test_depth_resizes_and_crop_borders_match_the_jax_package():
         assert parse_crop_borders(borders, (50, 70)) == jax_parse(borders, (50, 70)), borders
     with pytest.raises(ValueError):
         parse_crop_borders((1, 2, 3), (50, 70))
+    # PackNet-SAN's KITTI crop as its yaml writes it, read as the JAX package
+    # reads it ("-352" a float, a 4-tuple (x1, y1, x2, y2)): 188x621 of a
+    # 375x1242 frame in both packages, not the 352x1216 its authors meant
+    # (ROADMAP.md §3 (q))
+    (borders,) = {config_from_dict(SAN_KITTI).datasets.augmentation[k]
+                  for k in ("crop_train_borders", "crop_eval_borders")}
+    assert borders == (-352.0, 0.5, 0.5, 1216)
+    x1, y1, x2, y2 = parse_crop_borders(borders, (375, 1242))
+    assert (x1, y1, x2, y2) == jax_parse(borders, (375, 1242))
+    assert np.zeros((375, 1242))[y1:y2, x1:x2].shape == (188, 621)
 
 
 class _Indexed:
