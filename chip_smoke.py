@@ -17,7 +17,10 @@ Phases, each of which fails the run:
    variants warp_fwd_bf16/warp_bwd_bf16 on the same cases against the plain
    version on the widened image, and their times at the four shapes beside
    the float32 kernel, the cast + float32 kernel that the wrapper ran before
-   them, and image.float() + F.grid_sample.
+   them, and image.float() + F.grid_sample; warp_jvp (the coordinate
+   tangent) against the plain warp under forward AD on coordinates off
+   every side, both padding modes, C = 3, 1 and 4, B = 1 and 3, and its
+   time at the odometry path's [1,192,640,3].
 3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
    random weights from seed 0) on synthetic samples, as the config says:
@@ -122,6 +125,23 @@ Phases, each of which fails the run:
    overfit_kitti.yaml at ResNet-18 and -50; VelSup on train_kitti.yaml's
    networks with OXTS poses. Each run's launch counters against what its
    config launches a step.
+10. Ego-motion, export and conversion, on phase 7's KITTI tree and its
+   train_kitti.yaml checkpoint (PackNet01-1A + PoseNet, full width, 192x640;
+   cli.odometry builds it in float32, as the JAX CLI does): cli.odometry
+   over the first drive's 20 frames plain, with --refine-direct and with
+   both refinements, --gt the drive's OXTS poses in KITTI odometry format,
+   then each on the first 5 frames on the card and on the CPU against each
+   other (the CPU would take minutes over the drive), the launch counters read
+   around each run (warp_jvp 19 x 8 x 6 = 912 times with --refine-direct,
+   0 without); warp_jvp on the first pair's real depth and pose against the
+   plain warp under forward AD; the native solver against
+   optimize_pose_graph on the run's first window, and
+   optimize_pose_graph_sharded on two gloo ranks of card 0 (phase 8's
+   ``--worker``) against one process; cli.export of the checkpoint, float32
+   and --half, run in a fresh process that imports only torch, against
+   infer's forward; cli.convert_checkpoint of a reference-format .ckpt that
+   the phase writes from the same weights under the reference's names, whose
+   inverse depth must equal the original's.
 
 Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
 it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
@@ -131,15 +151,16 @@ The last line is {"ok": true, "device": {...}}; before the kernels' line,
 one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
 {"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's,
 one line {"data": {...}} phase 7's, one line {"distributed": {...}}
-phase 8's (with "backend" and "ranks_per_card") and one line {"models":
-{...}} phase 9's.
+phase 8's (with "backend" and "ranks_per_card"), one line {"models":
+{...}} phase 9's and one line {"odometry": {...}} phase 10's.
 The line before the last lists each kernel with its dtype, its launches on
 its train path's steps (the bfloat16 steps; the float32-image warp's on the
 float32 flagship steps), error against the plain version, time, plain
 time, bound and, where one PyTorch call computes the same function, that
 call's time, and each kernel's launches on phase 7's runs
-("data_launches"), by rank on phase 8's ("distributed_launches") and by
-run on phase 9's ("models_launches"). A
+("data_launches"), by rank on phase 8's ("distributed_launches"), by
+run on phase 9's ("models_launches") and on phase 10's
+("odometry_launches"); warp_jvp's launches are the --refine-direct run's. A
 bound is the largest of the bytes' time, the operations' time and the time
 of an empty kernel's launch, measured here.
 """
@@ -812,6 +833,73 @@ def warp_kernel_phase(device, shapes):
             for key in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
 
 
+# warp_jvp (the warp's coordinate tangent) at the ego-motion path's shape:
+# one target frame at the train_kitti.yaml resolution. FP32 operations per
+# output pixel: coordinates, taps and weights ~20, then 12 a channel.
+ODOMETRY_SHAPE = (1, 192, 640)
+WARP_JVP_OPS = (20, 12)
+
+
+def warp_jvp_kernel_phase(device):
+    """warp_jvp against the plain warp under forward AD on seeded cases
+    (coordinates off every side, exact integers and -1/+1, both paddings,
+    C = 3, 1 and 4, B = 1 and 3), then its time at the odometry path's
+    shape beside the plain version's and, where PyTorch has a forward-mode
+    rule for it, torch.func.jvp of F.grid_sample."""
+    import torch
+    import torch.nn.functional as F
+
+    from packnet_sfm_tpu_torch.ops import warp
+
+    def plain(image, coords, tangent, pad="zeros"):
+        return torch.func.jvp(lambda c: warp.grid_sample_plain(image, c, pad),
+                              (coords,), (tangent,))[1]
+
+    gen = torch.Generator().manual_seed(2)
+    worst, cases = 0.0, []
+    for b in (1, 3):
+        for c in (3, 1, 4):
+            for pad in ("zeros", "border"):
+                image, coords, _ = warp_inputs(gen, b, 33, 71, c, 37, 75, device, spread=1.3)
+                tangent = torch.randn(coords.shape, generator=gen).to(device)
+                got = warp.warp_jvp_cuda(image, coords, tangent, pad)
+                torch.cuda.synchronize()
+                want = plain(image, coords, tangent, pad)
+                rel = (got - want).abs().max().item() / want.abs().max().item()
+                log(f"warp_jvp B={b} 33x71x{c} -> 37x75 {pad}: max |d tangent| {rel:.3e} of "
+                    f"the largest (tolerance {TOL_WARP_GRAD:g})")
+                if not (torch.isfinite(got).all() and rel <= TOL_WARP_GRAD):
+                    raise AssertionError("warp_jvp disagrees with its plain version")
+                worst = max(worst, rel)
+                cases.append(dict(b=b, c=c, padding=pad, rel_err=rel))
+
+    b, h, w = ODOMETRY_SHAPE
+    gen = torch.Generator().manual_seed(3)
+    image = torch.rand((b, h, w, 3), generator=gen).to(device)
+    coords = smooth_coords(gen, b, h, w, device)
+    tangent = (torch.randn((b, h, w, 2), generator=gen) * 1e-2).to(device)
+    k = time_ms(lambda: warp.warp_jvp_cuda(image, coords, tangent))
+    p = time_ms(lambda: plain(image, coords, tangent))
+    nchw = image.permute(0, 3, 1, 2)
+    try:
+        lib = time_ms(lambda: torch.func.jvp(
+            lambda c: F.grid_sample(nchw, c, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True), (coords,), (tangent,)))
+        lib_note = f"torch.func.jvp of F.grid_sample {lib:.4f} ms"
+    except (NotImplementedError, RuntimeError) as e:
+        lib = None
+        lib_note = f"torch.func.jvp of F.grid_sample raises: {str(e).splitlines()[0]}"
+    px = b * h * w
+    # the image (12 B), coordinates (8 B) and their tangent (8 B) read once,
+    # the tangent out (12 B) written once, per pixel
+    bound = bound_ms(px * (12 + 8 + 8 + 12), px * (WARP_JVP_OPS[0] + 3 * WARP_JVP_OPS[1]))
+    log(f"warp_jvp at [{b},{h},{w},3]: kernel {k:.4f} ms, plain (forward AD) {p:.3f}, "
+        f"bound {bound[0]:.4f} ({bound[1]}); {lib_note}")
+    return {"warp_jvp": dict(max_abs_err=worst, ms=k, plain_ms=p, bound_ms=bound[0],
+                             bound_by=bound[1], library_ms=lib, library_note=lib_note,
+                             dtype="float32", by_case=cases)}
+
+
 def flagship_view_synthesis(model, batch, device, dtype):
     """view_synthesis through the warp kernels vs the plain version, value
     and d coords, on the first step's real depths and poses at every scale,
@@ -1344,9 +1432,8 @@ def train_phase(device):
     torch.cuda.synchronize()
     counts = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
     steps = trainer.step
-    want = {"softargmax_fwd": 0, "softargmax_bwd": 0,
-            "warp_fwd": TRAIN_SCALES * steps, "warp_bwd": TRAIN_SCALES * steps,
-            "warp_fwd_bf16": 0, "warp_bwd_bf16": 0}
+    want = {k: 0 for k in counts}
+    want.update(warp_fwd=TRAIN_SCALES * steps, warp_bwd=TRAIN_SCALES * steps)
     log(f"fit: {len(history)} epochs of {trainer.steps_per_epoch} steps; launches {counts}")
     if steps != TRAIN_EPOCHS * trainer.steps_per_epoch or counts != want:
         raise AssertionError(f"{steps} steps, launch counts {counts}, expected {want}")
@@ -2106,6 +2193,17 @@ def dist_worker(job_path):
         (table,) = evaluate(job["eval_ckpt"], job["eval_config"], device=job["device"])
         res["eval"] = dict(table={m: [float(x) for x in v] for m, v in table.items()},
                            seconds=time.perf_counter() - t0, launches=read_counts())
+    elif kind == "posegraph":
+        import numpy as np
+
+        from packnet_sfm_tpu_torch.egomotion.posegraph import (
+            PoseGraphConfig, optimize_pose_graph_sharded)
+
+        g = np.load(job["graph"])
+        edges = {k: torch.from_numpy(g[k]).to(device) for k in ("i", "j", "Z", "w")}
+        T, scales, cost = optimize_pose_graph_sharded(torch.from_numpy(g["T_init"]).to(device),
+                                                      edges, PoseGraphConfig())
+        res.update(T=T.cpu().tolist(), scales=scales.cpu().tolist(), cost=float(cost))
     elif kind in ("drain", "resume"):
         from packnet_sfm_tpu_torch.cli.train import train
 
@@ -2538,6 +2636,324 @@ def models_phase(device):
     return result
 
 
+# Phase 10: ego-motion, export and conversion, on phase 7's KITTI tree (the
+# first drive's 20 frames, 375x1242, resized to the checkpoint's 192x640)
+# and phase 7's train_kitti.yaml checkpoint (PackNet01-1A + PoseNet at full
+# width; cli.odometry builds it in float32 whatever arch.dtype says, as the
+# JAX CLI does, so the frames and the warp are float32). cli.odometry runs
+# three times: plain, --refine-direct, and --refine-direct --refine-ba.
+ODOMETRY_RUNS = (("plain", {}), ("direct", {"refine_direct": True}),
+                 ("direct_ba", {"refine_direct": True, "refine_ba": True}))
+# refine_relative_poses' Gauss-Newton steps a pair, the forward-mode columns
+# of a step's Jacobian (one warp_jvp each), and the warps of a step besides:
+# the residual at 0, the six columns' own forward and the three trials of
+# the line search; one more a pair for the final residual
+DIRECT_ITERATIONS, JVP_COLUMNS, FWD_PER_ITERATION = 8, 6, 10
+# The card against the same CLI on the CPU, on the drive's first CPU_FRAMES
+# frames (the CPU's three runs took 91 s on the first 8 frames: over the
+# whole drive they would take minutes): the largest difference of a pose
+# matrix entry (rotations, and translations in the predicted scale).
+# Float32 networks whose convolutions sum in other orders on the two
+# devices, then 8 Gauss-Newton steps a pair whose line search may take
+# another trial where two costs tie; measured on an H100 over 8 frames:
+# plain 6.0e-8, --refine-direct 2.0e-5, both refinements 5.7e-6.
+CPU_FRAMES = 5
+TOL_ODOMETRY_CPU = 1e-3
+# warp_jvp on the first pair's real depth and pose against the plain warp
+# under forward AD, relative to the tangent's largest magnitude
+TOL_WARP_JVP = TOL_WARP_GRAD
+# The native solver (float64, central differences) against optimize_pose_graph
+# on the card (float32, forward mode) on the run's first window: poses, as
+# tests/test_native.py holds them. Two gloo ranks on the card against one
+# process: the same float32 sums split in two halves (12 iterations).
+TOL_NATIVE_POSES = 5e-3
+TOL_POSEGRAPH_RANKS = 1e-4
+# The exported depth forward, run in a process that imports only torch (TF32
+# off, as here), against infer's forward of the same model: TOL_INFER and
+# TOL_INFER_HALF, relative to the largest inverse depth.
+EXPORT_LOADER = """
+import json, sys, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+rgb = torch.load(sys.argv[1]).cuda()
+for program, result in zip(sys.argv[2::2], sys.argv[3::2]):
+    fn = torch.export.load(program).module()
+    with torch.no_grad():
+        torch.save(fn(rgb).cpu(), result)
+print(json.dumps(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                        or m.startswith("packnet_sfm_tpu"))))
+"""
+
+
+def oxts_poses(drive, n):
+    """The drive's OXTS poses of its first ``n`` frames, relative to the
+    first, in the IMU frame (datasets/kitti_utils.pose_from_oxts_packet)."""
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.datasets.kitti_utils import (
+        pose_from_oxts_packet, transform_from_rot_trans)
+
+    packets = [np.loadtxt(drive / "oxts" / "data" / f"{i:010d}.txt") for i in range(n)]
+    scale = np.cos(packets[0][0] * np.pi / 180.0)
+    origin = transform_from_rot_trans(*pose_from_oxts_packet(packets[0], scale))
+    return np.stack([np.linalg.inv(origin) @ transform_from_rot_trans(
+        *pose_from_oxts_packet(p, scale)) for p in packets])
+
+
+def odometry_run(ckpt, frames, gt, out, device, **flags):
+    """``cli.odometry.run_odometry`` with the launch counters read around
+    it; returns (trajectory, record). ``flags`` go to run_odometry
+    (refine_direct, refine_ba, max_frames)."""
+    import torch
+
+    from packnet_sfm_tpu_torch.cli.odometry import run_odometry
+
+    printed = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        traj = run_odometry(str(ckpt), str(frames), output=str(out), gt=str(gt),
+                            device=device, **flags)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    metrics = json.loads(printed.getvalue().strip().splitlines()[-1])
+    return traj, dict(seconds=secs, seconds_per_frame=secs / metrics["frames"],
+                      launches=counts, **metrics)
+
+
+def warp_jvp_on_real_depth(model, frames, K, T0, device):
+    """warp_jvp against the plain warp under forward AD on the first pair's
+    real coordinates (its predicted depth, the pose net's pose) and their
+    tangents along the six twist coordinates; returns the worst relative
+    difference."""
+    import torch
+
+    from packnet_sfm_tpu_torch.geometry.camera import Camera, project, reconstruct
+    from packnet_sfm_tpu_torch.geometry.se3 import se3_exp
+    from packnet_sfm_tpu_torch.losses.photometric import inv2depth
+    from packnet_sfm_tpu_torch.models.sfm import model_forward
+    from packnet_sfm_tpu_torch.ops import warp
+
+    target = torch.from_numpy(frames[0:1]).to(device)
+    ref = torch.from_numpy(frames[1:2]).to(device)
+    Kt = torch.from_numpy(K[None]).to(device)
+    T0 = torch.from_numpy(T0).to(device)
+    with torch.no_grad():
+        depth = inv2depth(model_forward(model, {"rgb": target}, train=False)["inv_depths"][0])
+
+    def coords_of(xi):
+        T = se3_exp(xi[None])[0] @ T0
+        return project(Camera(K=Kt, Tcw=T[None]), reconstruct(Camera(K=Kt), depth))
+
+    xi0, eye = torch.zeros(6, device=device), torch.eye(6, device=device)
+    worst = 0.0
+    for i in range(JVP_COLUMNS):
+        coords, tangent = torch.func.jvp(coords_of, (xi0,), (eye[i],))
+        got = warp.warp_jvp_cuda(ref, coords.contiguous(), tangent.contiguous())
+        want = torch.func.jvp(lambda c: warp.grid_sample_plain(ref, c), (coords,), (tangent,))[1]
+        worst = max(worst, (got - want).abs().max().item() / want.abs().max().item())
+    return worst
+
+
+def odometry_phase(device):
+    """Phase 10 (see the module docstring); returns its numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from packnet_sfm_tpu_torch.cli.convert_checkpoint import convert
+    from packnet_sfm_tpu_torch.cli.export import export_checkpoint
+    from packnet_sfm_tpu_torch.cli.infer import make_depth_fn
+    from packnet_sfm_tpu_torch.cli.odometry import kitti_intrinsics, load_frames
+    from packnet_sfm_tpu_torch.core.config import ConfigNode
+    from packnet_sfm_tpu_torch.egomotion.evaluation import save_kitti_odometry_poses
+    from packnet_sfm_tpu_torch.egomotion.odometry import (
+        predict_skip_poses, trajectory_from_relative, window_edges)
+    from packnet_sfm_tpu_torch.egomotion.posegraph import PoseGraphConfig, optimize_pose_graph
+    from packnet_sfm_tpu_torch.engine.checkpoint import restore_checkpoint
+    from packnet_sfm_tpu_torch.engine.factory import setup_model
+    from packnet_sfm_tpu_torch.native import solve_pose_graph_native
+    from packnet_sfm_tpu_torch.utils.torch_import import reference_state_dict
+
+    t_phase = time.perf_counter()
+    data = ROOT / "build" / "chip_smoke_data"
+    (ckpt,) = sorted((data / "kitti_ckpt").iterdir())
+    date, num, _ = KITTI_DRIVES[0]
+    drive = data / "KITTI_raw" / date / f"{date}_drive_{num:04d}_sync"
+    frames_dir = drive / "image_02" / "data"
+    out = data / "odometry"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    gt = out / "gt.txt"
+    save_kitti_odometry_poses(str(gt), oxts_poses(drive, KITTI_FRAMES))
+    result, failures = {"checkpoint": ckpt.name, "frames": KITTI_FRAMES}, []
+
+    def expected(launches, frames, direct):
+        want = {k: 0 for k in launches}
+        if direct:
+            want["warp_jvp"] = (frames - 1) * DIRECT_ITERATIONS * JVP_COLUMNS
+            want["warp_fwd"] = (frames - 1) * (DIRECT_ITERATIONS * FWD_PER_ITERATION + 1)
+        return want
+
+    # 1. the CLI three times on the card over the drive, then on its first
+    # CPU_FRAMES frames on the card and on the CPU
+    trajs = {}
+    for name, flags in ODOMETRY_RUNS:
+        trajs[name], rec = odometry_run(ckpt, frames_dir, gt, out / f"{name}.txt", device,
+                                        **flags)
+        want = expected(rec["launches"], KITTI_FRAMES, flags.get("refine_direct", False))
+        log(f"odometry {name} on the card: {rec['seconds']:.1f} s, {rec['seconds_per_frame']:.3f} "
+            f"s a frame (model build and restore included); ATE {rec['ate_rmse_m']} m, RPE "
+            f"{rec['rpe_trans_m']} m / {rec['rpe_rot_deg']} deg; launches {rec['launches']}")
+        if rec["launches"] != want:
+            failures.append(f"odometry {name}: launches {rec['launches']}, expected {want}")
+        if not np.isfinite(trajs[name]).all():
+            failures.append(f"odometry {name}: non-finite trajectory")
+        result[name] = rec
+    for name, flags in ODOMETRY_RUNS:
+        card, card_rec = odometry_run(ckpt, frames_dir, gt, out / f"{name}_short.txt", device,
+                                      max_frames=CPU_FRAMES, **flags)
+        cpu, cpu_rec = odometry_run(ckpt, frames_dir, gt, out / f"{name}_cpu.txt", "cpu",
+                                    max_frames=CPU_FRAMES, **flags)
+        diff = float(np.abs(card - cpu).max())
+        want = expected(card_rec["launches"], CPU_FRAMES, flags.get("refine_direct", False))
+        result[name].update(cpu_frames=CPU_FRAMES, cpu_seconds=cpu_rec["seconds"],
+                            short_card_seconds=card_rec["seconds"],
+                            card_vs_cpu_max_abs_diff=diff)
+        log(f"odometry {name} on {CPU_FRAMES} frames: card {card_rec['seconds']:.1f} s, CPU "
+            f"{cpu_rec['seconds']:.1f} s; ATE {card_rec['ate_rmse_m']} / {cpu_rec['ate_rmse_m']} "
+            f"m; max |card - CPU| over the trajectory {diff:.3e} (tolerance "
+            f"{TOL_ODOMETRY_CPU:g})")
+        if not diff <= TOL_ODOMETRY_CPU:
+            failures.append(f"odometry {name}: card against CPU {diff:.3e}")
+        if card_rec["launches"] != want or any(cpu_rec["launches"].values()):
+            failures.append(f"odometry {name} on {CPU_FRAMES} frames: launches "
+                            f"{card_rec['launches']} / {cpu_rec['launches']}")
+
+    # 2. warp_jvp on the first pair's real depth and pose
+    config = ConfigNode.from_dict(json.loads((ckpt / "meta.json").read_text())["config"])
+    model = setup_model(config.model, device=device)
+    restore_checkpoint(str(ckpt), model)
+    frames = load_frames(str(frames_dir), tuple(config.datasets.augmentation.image_shape))
+    K = kitti_intrinsics(*frames.shape[1:3])
+    rel = np.stack([np.linalg.inv(a) @ b for a, b in zip(trajs["plain"][:-1],
+                                                           trajs["plain"][1:])]).astype(np.float32)
+    result["warp_jvp_real_rel_err"] = warp_jvp_on_real_depth(model, frames, K, rel[0], device)
+    log(f"warp_jvp on the first pair's real depth and pose, six twist directions: "
+        f"{result['warp_jvp_real_rel_err']:.3e} of the largest (tolerance {TOL_WARP_JVP:g})")
+    if not result["warp_jvp_real_rel_err"] <= TOL_WARP_JVP:
+        failures.append("warp_jvp on real data disagrees with its plain version")
+
+    # 3. the native solver and two ranks against optimize_pose_graph on the
+    # card, on the CLI's first window with the skip measurements as extra edges
+    extra = predict_skip_poses(model, frames, 2) + predict_skip_poses(model, frames, 3)
+    traj0 = trajectory_from_relative(rel)
+    cfg = PoseGraphConfig(optimize_scales=False)
+    edges = window_edges(rel, 0, 10, extra)
+    T_t, _, _ = optimize_pose_graph(torch.from_numpy(traj0[:10]).to(device),
+                                    {k: torch.from_numpy(v).to(device) for k, v in edges.items()},
+                                    cfg)
+    t0 = time.perf_counter()
+    T_n, _, _ = solve_pose_graph_native(traj0[:10], edges, num_iterations=cfg.num_iterations,
+                                        optimize_scales=False)
+    native_s = time.perf_counter() - t0
+    native_diff = float(np.abs(T_n - T_t.cpu().numpy()).max())
+    log(f"native solver on the first window ({len(edges['i'])} edges, 10 poses) in "
+        f"{native_s * 1e3:.1f} ms: max |native - optimize_pose_graph| {native_diff:.3e} "
+        f"(tolerance {TOL_NATIVE_POSES:g})")
+    if not native_diff <= TOL_NATIVE_POSES:
+        failures.append(f"native solver {native_diff:.3e}")
+    edges9 = window_edges(rel, 0, 9, extra)            # 21 edges: padded to 22 on two ranks
+    graph = ROOT / "build" / "chip_smoke_dist" / "posegraph.npz"
+    graph.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(graph, T_init=traj0[:9], **edges9)
+    one = optimize_pose_graph(torch.from_numpy(traj0[:9]).to(device),
+                              {k: torch.from_numpy(v).to(device) for k, v in edges9.items()},
+                              PoseGraphConfig())
+    ranks = dist_job(2, "posegraph_2rank", kind="posegraph", backend="gloo", device="cuda:0",
+                     graph=str(graph))
+    ranks_diff = max(float(np.abs(np.asarray(r["T"]) - one[0].cpu().numpy()).max())
+                     for r in ranks)
+    log(f"optimize_pose_graph_sharded on two gloo ranks of card 0 ({len(edges9['i'])} edges) "
+        f"against one process: max |T| difference {ranks_diff:.3e} (tolerance "
+        f"{TOL_POSEGRAPH_RANKS:g}); cost {ranks[0]['cost']:.6g} against {float(one[2]):.6g}")
+    if not (ranks_diff <= TOL_POSEGRAPH_RANKS and ranks[0]["T"] == ranks[1]["T"]):
+        failures.append(f"two-rank pose graph {ranks_diff:.3e}")
+    result.update(native_vs_torch_max_abs_diff=native_diff, native_ms=native_s * 1e3,
+                  two_ranks_vs_one_max_abs_diff=ranks_diff)
+
+    # 4. cli.export, float32 and --half, both run in one process that imports
+    # only torch
+    rgb = torch.from_numpy(frames[:1])
+    torch.save(rgb, out / "rgb.pt")
+    exports = {"float32": (False, TOL_INFER), "half": (True, TOL_INFER_HALF)}
+    result["export"], args = {}, []
+    for name, (half, _) in exports.items():
+        path = out / f"depth_{name}.pt2"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            size = export_checkpoint(str(ckpt), str(path), half=half, device=device)
+        result["export"][name] = dict(mb=size / 1e6, seconds=time.perf_counter() - t0)
+        args += [str(path), str(out / f"exported_{name}.pt")]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, str(out / "rgb.pt"), *args],
+                          capture_output=True, text=True, timeout=600, cwd=str(out))
+    if proc.returncode != 0:
+        raise AssertionError(f"the exported models do not run:\n{proc.stderr[-3000:]}")
+    leaked = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"export: both programs loaded and run in a torch-only process in "
+        f"{time.perf_counter() - t0:.1f} s; modules of jax or the port there: {leaked}")
+    if leaked:
+        failures.append(f"the export's loader imported {leaked}")
+    for name, (half, tol) in exports.items():
+        got = torch.load(out / f"exported_{name}.pt")
+        ref_model = setup_model(config.model, device=device,
+                                dtype=torch.bfloat16 if half else None)
+        restore_checkpoint(str(ckpt), ref_model)
+        want = make_depth_fn(ref_model)(rgb.to(device)).cpu()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        rec = result["export"][name]
+        rec["rel_err"] = err
+        log(f"export {name}: {rec['mb']:.1f} MB in {rec['seconds']:.1f} s; "
+            f"{tuple(got.shape)} {got.dtype} against infer's forward {err:.3e} of the largest "
+            f"(tolerance {tol:g})")
+        if got.dtype != torch.float32 or tuple(got.shape) != tuple(want.shape) or not err <= tol:
+            failures.append(f"export {name}: {err:.3e}")
+        (out / f"depth_{name}.pt2").unlink()
+        del ref_model
+
+    # 5. cli.convert_checkpoint on a reference-format .ckpt of the same weights
+    src = out / "reference.ckpt"
+    torch.save({"config": {"model": {"name": "SelfSupModel",
+                                     "depth_net": {"name": "PackNet01", "version": "1A"},
+                                     "pose_net": {"name": "PoseNet"}}},
+                "epoch": 0, "state_dict": reference_state_dict(model)}, src)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        converted = convert(str(src), str(out / "converted"))
+    convert_s = time.perf_counter() - t0
+    meta = json.loads((pathlib.Path(converted) / "meta.json").read_text())
+    back = setup_model(ConfigNode.from_dict(meta["config"]).model, device=device, seed=1)
+    restore_checkpoint(converted, back)
+    equal = bool(torch.equal(make_depth_fn(back)(rgb.to(device)), make_depth_fn(model)(rgb.to(device))))
+    log(f"convert_checkpoint of a reference-format .ckpt ({src.stat().st_size / 1e6:.1f} MB) in "
+        f"{convert_s:.1f} s: the converted model's inverse depth equal to the original's: {equal}")
+    if not equal:
+        failures.append("the converted checkpoint's inverse depth differs")
+    result.update(convert_seconds=convert_s, convert_equal=equal)
+    shutil.rmtree(out / "converted")
+    src.unlink()
+
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 took {result['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures))
+    return result
+
+
 def main():
     import torch
 
@@ -2583,6 +2999,7 @@ def main():
     measured = kernel_phase(device, cfg.datasets.augmentation.image_shape,
                             projection_temperature(PROGRESS))
     measured.update(warp_kernel_phase(device, path_shapes(kitti)))
+    measured.update(warp_jvp_kernel_phase(device))
     _blocker.clear()                # the timing's 256 MiB matrix: not a part of any step's memory
     torch.cuda.empty_cache()
     nrs, real = slice_phase(device, cfg)
@@ -2601,6 +3018,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     models = models_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    odometry = odometry_phase(device)
 
     # each kernel's launches are those of the train path it belongs to, as
     # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
@@ -2617,6 +3037,10 @@ def main():
                      kitti_steps["float32"]["launches"]),
         "warp_fwd_bf16": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
         "warp_bwd_bf16": ("warp", "docs/bench_pallas_gather_probe.py:102", kitti_counts),
+        # not a TPU kernel: JAX's forward-mode AD of its warp, taken by the
+        # direct alignment; its launches are those of the --refine-direct run
+        "warp_jvp": ("warp", "packnet_sfm_tpu/egomotion/alignment.py:65",
+                     odometry["direct"]["launches"]),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -2625,7 +3049,7 @@ def main():
                      replaces=replaces, launches=counts[name], max_abs_err=m["max_abs_err"],
                      ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                      bound_by=m["bound_by"], library_ms=m.get("library_ms"))
-        for extra in ("dtype", "by_shape", "by_case"):
+        for extra in ("dtype", "by_shape", "by_case", "library_note"):
             if extra in m:
                 entry[extra] = m[extra]
         if name in ("warp_fwd", "warp_bwd"):
@@ -2649,6 +3073,9 @@ def main():
         # phase 9's, by run
         entry["models_launches"] = {run: rec["launches"][name] for run, rec in models.items()
                                     if isinstance(rec, dict)}
+        # phase 10's, by odometry run
+        entry["odometry_launches"] = {run: odometry[run]["launches"][name]
+                                      for run, _ in ODOMETRY_RUNS}
         kernels.append(entry)
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
@@ -2656,6 +3083,7 @@ def main():
     print(json.dumps({"data": data}))
     print(json.dumps({"distributed": dist}))
     print(json.dumps({"models": models}))
+    print(json.dumps({"odometry": odometry}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Bilinear warp (grid sample, align_corners = true) of an NHWC image:
-// forward and backward kernels for Hopper (sm_90a).
+// forward, backward and coordinate-tangent kernels for Hopper (sm_90a).
 //
 // Replaces: the row gather of the warp's four taps that the JAX package
 // probed as a Pallas kernel (docs/bench_pallas_gather_probe.py,
@@ -55,6 +55,22 @@
 // carried over: no padded 4-tap stack, no index array, no packing of lanes;
 // those answered a machine without a gather. A deterministic d image is
 // left for a later change.
+//
+// The coordinate tangent (warp_jvp). The direct pose alignment of the
+// ego-motion path (packnet_sfm_tpu/egomotion/alignment.py) builds its
+// Gauss-Newton Jacobian from forward-mode derivatives of the warp with
+// respect to the coordinates, which JAX takes by forward-mode AD of its XLA
+// warp. For a tangent (tx, ty) of the coordinates it writes, a channel at a
+// time,
+//   t = (W-1)/2 tx [(1-wy)(v01-v00) + wy (v11-v10)] + (H-1)/2 ty (bot - top),
+// the contraction of warp_bwd's d coords terms with the tangent in place of
+// a cotangent, from the same taps (make_taps), so that both padding modes
+// treat the border exactly as warp_fwd and warp_bwd do. One thread per
+// output pixel, C a template parameter (3 and 1, else a run-time loop), as
+// in warp_fwd. It reads the coordinates and their tangent (16 bytes) and
+// the four taps, and writes 4C bytes: 32 bytes a pixel for C = 3 where the
+// taps come from cache. The image is data on that path: there is no image
+// tangent, and the image is float32 (the frames are).
 //
 // The bfloat16 image. The JAX package's bfloat16 policy warps a bfloat16
 // image at float32 coordinates and gets float32 back (its _lerp_taps
@@ -237,6 +253,40 @@ warp_bwd_kernel(const T* __restrict__ image,
   d_coords[2 * i + 1] = dwy * (0.5f * (float)(h - 1));
 }
 
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+warp_jvp_kernel(const float* __restrict__ image,
+                const float* __restrict__ coords,
+                const float* __restrict__ tangent, float* __restrict__ out,
+                int per_image, int h, int w, int c_rt, int border) {
+  const int c = C > 0 ? C : c_rt;
+  const int pix = blockIdx.x * THREADS + threadIdx.x;  // within the image
+  if (pix >= per_image) return;
+  const size_t b = blockIdx.y;
+  const float* img = image + b * h * w * c;
+  const float2 xy = __ldg(reinterpret_cast<const float2*>(coords) + b * per_image + pix);
+  const float2 dxy = __ldg(reinterpret_cast<const float2*>(tangent) + b * per_image + pix);
+  const Taps t = make_taps(xy.x, xy.y, h, w, border);
+  const float sx = dxy.x * (0.5f * (float)(w - 1));
+  const float sy = dxy.y * (0.5f * (float)(h - 1));
+  const float* p00 = img + t.o00 * c;
+  const float* p01 = img + t.o01 * c;
+  const float* p10 = img + t.o10 * c;
+  const float* p11 = img + t.o11 * c;
+  float* o = out + (b * per_image + pix) * c;
+#pragma unroll
+  for (int ch = 0; ch < c; ++ch) {
+    const float v00 = t.m00 != 0.f ? ld(p00 + ch) : 0.f;
+    const float v01 = t.m01 != 0.f ? ld(p01 + ch) : 0.f;
+    const float v10 = t.m10 != 0.f ? ld(p10 + ch) : 0.f;
+    const float v11 = t.m11 != 0.f ? ld(p11 + ch) : 0.f;
+    const float top = v00 * (1.0f - t.wx) + v01 * t.wx;
+    const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
+    const float dwx = (1.0f - t.wy) * (v01 - v00) + t.wy * (v11 - v10);
+    o[ch] = sx * dwx + sy * (bot - top);
+  }
+}
+
 bool bad_shape(int b, int h, int w, int c, int ho, int wo) {
   // Element offsets within one image and within one output are ints.
   return b < 0 || h < 1 || w < 1 || c < 1 || ho < 1 || wo < 1 ||
@@ -288,6 +338,32 @@ int launch_bwd(const T* image, const float* coords, const float* grad_out,
   return (int)cudaGetLastError();
 }
 
+int launch_jvp(const float* image, const float* coords, const float* tangent,
+               float* out, int b, int h, int w, int c, int ho, int wo,
+               int padding, void* stream) {
+  if (bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1))
+    return (int)cudaErrorInvalidValue;
+  const int per_image = ho * wo;
+  for (int b0 = 0; b0 < b; b0 += 65535) {
+    const int nb = b - b0 < 65535 ? b - b0 : 65535;
+    const dim3 grid((unsigned)blocks_for(per_image), (unsigned)nb);
+    const float* im = image + (size_t)b0 * h * w * c;
+    const float* co = coords + (size_t)b0 * per_image * 2;
+    const float* ta = tangent + (size_t)b0 * per_image * 2;
+    float* ou = out + (size_t)b0 * per_image * c;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (c == 3)
+      warp_jvp_kernel<3><<<grid, THREADS, 0, st>>>(im, co, ta, ou, per_image, h, w, c, padding);
+    else if (c == 1)
+      warp_jvp_kernel<1><<<grid, THREADS, 0, st>>>(im, co, ta, ou, per_image, h, w, c, padding);
+    else
+      warp_jvp_kernel<0><<<grid, THREADS, 0, st>>>(im, co, ta, ou, per_image, h, w, c, padding);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // All tensors are contiguous on the device. image [b, h, w, c]: float32, or
@@ -324,6 +400,16 @@ extern "C" int warp_bwd_bf16(const void* image, const float* coords,
   return launch_bwd(static_cast<const __nv_bfloat16*>(image), coords,
                     grad_out, d_coords, static_cast<float*>(nullptr), b, h, w,
                     c, ho, wo, padding, stream);
+}
+
+// coords_tangent [b, ho, wo, 2] and out [b, ho, wo, c], float32: the
+// derivative of warp_fwd's output along coords_tangent (float32 image).
+extern "C" int warp_jvp(const float* image, const float* coords,
+                        const float* coords_tangent, float* out, int b, int h,
+                        int w, int c, int ho, int wo, int padding,
+                        void* stream) {
+  return launch_jvp(image, coords, coords_tangent, out, b, h, w, c, ho, wo,
+                    padding, stream);
 }
 
 // One warp that does nothing: the time no launch on the card can go under.

@@ -45,6 +45,11 @@ def invert_pose(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
+def compose_poses(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """Compose two [..., 4, 4] transforms: returns Ta @ Tb."""
+    return Ta @ Tb
+
+
 def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply [B, 4, 4] SE(3) to [B, H, W, 3] points (NHWC layout)."""
     out = torch.einsum("bij,bhwj->bhwi", T[:, :3, :3], points)

@@ -1,17 +1,20 @@
-"""ctypes bindings for the native image decode (``image_pipeline.cpp``).
+"""ctypes bindings for the native image decode (``image_pipeline.cpp``) and
+the native pose-graph solver (``posegraph_solver.cpp``).
 
-The port's own copy of the image half of ``packnet_sfm_tpu/native/
-__init__.py``. The library is built with ``g++ -O3 ... -ljpeg -lpng`` at
-first use, from this package's ``image_pipeline.cpp``, into
+The port's own copy of ``packnet_sfm_tpu/native/__init__.py``. Each source
+is built with ``g++ -O3`` at first use into its own library under
 ``build/native/`` at the root of the checkout (listed in ``.gitignore``),
-keyed by a hash of the source. Nothing is built or loaded when this module
-is imported.
+keyed by a hash of the source: the decode links ``-ljpeg -lpng``, the
+solver nothing, so that it builds where the image libraries are missing.
+Nothing is built or loaded when this module is imported.
 
 Where the library does not build or load (no compiler, no libjpeg or libpng
 headers), ``decode_image`` returns None and the readers decode with Pillow,
 as in the JAX package. The two decoders can differ on a JPEG by a few
 levels, so the fallback is not silent: the build's error is printed once,
-and ``decoder()`` names the decoder in use.
+and ``decoder()`` names the decoder in use. The solver has no fallback:
+where it does not build, ``solve_pose_graph_native`` raises with the
+compiler's message.
 """
 
 from __future__ import annotations
@@ -22,11 +25,12 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "image_pipeline.cpp"
+SOLVER_SOURCE = Path(__file__).resolve().parent / "posegraph_solver.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
@@ -34,18 +38,25 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None        # why the library is unavailable, once known
 _decode_tls = threading.local()
+_solver: Optional[ctypes.CDLL] = None
+_solver_error: Optional[str] = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libpacknet_image_{digest}.so"
+def library_path(source: Optional[Path] = None, stem: str = "packnet_image") -> Path:
+    """Where the library of ``source`` (default: the image decode) is built."""
+    source = source or SOURCE
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}_{digest}.so"
 
 
-def _build(out: Path) -> Optional[str]:
-    """Compile the source into ``out``; None on success, else the error."""
+def _build(out: Path, source: Optional[Path] = None,
+           libs=("-ljpeg", "-lpng")) -> Optional[str]:
+    """Compile ``source`` (default: the image decode) into ``out``; None on
+    success, else the error."""
+    source = source or SOURCE
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-ljpeg", "-lpng", "-o", str(tmp)]
+    cmd = ["g++", *CXX_FLAGS, str(source), *libs, "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
     except (OSError, subprocess.SubprocessError) as e:
@@ -148,3 +159,60 @@ def decode_image(path: str) -> Optional[np.ndarray]:
     if rc != 0:
         return None
     return buf[: h.value * w.value * 3].reshape(h.value, w.value, 3).copy()
+
+
+def load_solver() -> ctypes.CDLL:
+    """The pose-graph solver's library, built if needed; raises with the
+    compiler's (or the loader's) message where it is unavailable."""
+    global _solver, _solver_error
+    with _lock:
+        if _solver is None and _solver_error is None:
+            out = library_path(SOLVER_SOURCE, "packnet_posegraph")
+            err = None if out.exists() else _build(out, SOLVER_SOURCE, ())
+            if err is None:
+                try:
+                    lib = ctypes.CDLL(str(out))
+                except OSError as e:
+                    err = f"loading {out}: {e}"
+            if err is not None:
+                _solver_error = err
+            else:
+                dp, ip = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
+                lib.pn_solve_pose_graph.restype = ctypes.c_double
+                lib.pn_solve_pose_graph.argtypes = [
+                    ctypes.c_int, dp, ctypes.c_int, ip, ip, dp, dp, ctypes.c_int,
+                    ctypes.c_double, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                    ctypes.c_double, dp]
+                _solver = lib
+        if _solver is None:
+            raise RuntimeError(f"native pose-graph solver unavailable: {_solver_error}")
+        return _solver
+
+
+def solve_pose_graph_native(
+    poses: np.ndarray, edges: dict, num_iterations: int = 12,
+    rot_weight: float = 100.0, optimize_scales: bool = True,
+    pose_prior: float = 1e6, scale_prior: float = 1e6,
+    damping: float = 1e-6,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Host-side pose-graph solve in float64, with the contract of
+    ``egomotion/posegraph.optimize_pose_graph``: poses [N, 4, 4] and edges
+    {'i', 'j', 'Z', 'w'} as numpy arrays -> (poses [N, 4, 4], scales [N],
+    cost)."""
+    lib = load_solver()
+    n = poses.shape[0]
+    poses_io = np.ascontiguousarray(poses, np.float64).copy()
+    ei = np.ascontiguousarray(edges["i"], np.int32)
+    ej = np.ascontiguousarray(edges["j"], np.int32)
+    Z = np.ascontiguousarray(edges["Z"], np.float64)
+    w = np.ascontiguousarray(edges["w"], np.float64)
+    scales = np.zeros(n, np.float64)
+    dp, ip = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int)
+    cost = lib.pn_solve_pose_graph(
+        n, poses_io.ctypes.data_as(dp), len(ei), ei.ctypes.data_as(ip),
+        ej.ctypes.data_as(ip), Z.ctypes.data_as(dp), w.ctypes.data_as(dp),
+        num_iterations, rot_weight, int(optimize_scales), pose_prior, scale_prior,
+        damping, scales.ctypes.data_as(dp))
+    if cost < 0:
+        raise RuntimeError("native pose graph solve failed (non-SPD system)")
+    return poses_io, scales, float(cost)

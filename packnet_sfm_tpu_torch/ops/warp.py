@@ -11,8 +11,14 @@ tap's index is clamped into the image).
   gather); on CPU tensors they are ``grid_sample_plain``. Any other device
   raises.
 - ``grid_sample_plain``: plain PyTorch (floor, four index gathers, masks,
-  lerp), differentiated by autograd. The CPU tests and ``chip_smoke.py``
-  hold the kernels to it.
+  lerp), differentiated by autograd in either mode. The CPU tests and
+  ``chip_smoke.py`` hold the kernels to it.
+- Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``): on CUDA
+  the coordinates' tangent goes through ``warp_jvp`` (the direct pose
+  alignment's Jacobian columns); the kernel takes a float32 image, and an
+  image tangent raises, since the image is data on that path (ROADMAP.md
+  §3 (f)). On the CPU, ``grid_sample_plain`` under forward AD is
+  ``warp_jvp``'s plain version.
 - ``launch_counts``: launches of each kernel, counted where the wrapper
   launches it, so a run can show that its path went through the kernels;
   ``bf16_launch_counts`` those of the bfloat16-image variants
@@ -33,7 +39,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-launch_counts = {"warp_fwd": 0, "warp_bwd": 0}
+launch_counts = {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
 bf16_launch_counts = {"warp_fwd_bf16": 0, "warp_bwd_bf16": 0}
 
 PADDING_MODES = {"zeros": 0, "border": 1}
@@ -124,22 +130,83 @@ def warp_bwd_cuda(image: torch.Tensor, coords: torch.Tensor, grad_out: torch.Ten
     return d_image, d_coords
 
 
+def _with_storage(t: torch.Tensor) -> torch.Tensor:
+    """``t`` without the wrappers of ``torch.func`` transforms, which have no
+    storage of their own: under ``torch.func.jvp`` a jvp rule's saved
+    inputs, tangents and new tensors are all so wrapped, and the tensor
+    inside holds the data that a launcher reads or writes."""
+    from torch._C import _functorch
+
+    while _functorch.is_functorch_wrapped_tensor(t):
+        t = _functorch.get_unwrapped(t)
+    return t
+
+
+def warp_jvp_cuda(image: torch.Tensor, coords: torch.Tensor, coords_tangent: torch.Tensor,
+                  padding_mode: str = "zeros") -> torch.Tensor:
+    """Coordinate-tangent kernel: the derivative of ``warp_fwd_cuda``'s
+    output along ``coords_tangent`` [B,H',W',2] (float32), for a float32
+    image -> [B,H',W',C] (float32)."""
+    from packnet_sfm_tpu_torch.ops import _cuda
+
+    padding = _padding_code(padding_mode)
+    _check_shapes(image, coords)
+    b, h, w, c = image.shape
+    _, ho, wo, _ = coords.shape
+    _cuda.check_tensor("image", image, (b, h, w, c))
+    _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
+    _cuda.check_tensor("coords_tangent", coords_tangent, (b, ho, wo, 2))
+    launcher = _cuda.load("warp").warp_jvp
+    out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
+    ptrs = [_with_storage(t).data_ptr() for t in (image, coords, coords_tangent, out)]
+    with torch.cuda.device(image.device):
+        err = launcher(*ptrs, b, h, w, c, ho, wo, padding, _cuda.stream(image))
+    if err != 0:
+        raise RuntimeError(f"warp_jvp launch failed: cudaError {err}")
+    launch_counts["warp_jvp"] += 1
+    return out
+
+
 class _WarpCuda(torch.autograd.Function):
+    """The kernels as one differentiable function of (image, coords):
+    ``backward`` through ``warp_bwd``, ``jvp`` (forward mode) through
+    ``warp_jvp``. In the ``setup_context`` form, so that ``torch.func``
+    transforms take it as well as ``torch.autograd``."""
+
     @staticmethod
-    def forward(ctx, image, coords, padding_mode):
-        out = warp_fwd_cuda(image, coords, padding_mode)
+    def forward(image, coords, padding_mode):
+        return warp_fwd_cuda(image, coords, padding_mode)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        image, coords, padding_mode = inputs
         ctx.save_for_backward(image, coords)
+        ctx.save_for_forward(image, coords)
         ctx.padding_mode = padding_mode
-        return out
+        # an input without a tangent (or an output without a gradient) comes
+        # as None, not as zeros: so an image tangent is seen for what it is
+        ctx.set_materialize_grads(False)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
+        if grad_out is None:
+            return None, None, None
         image, coords = ctx.saved_tensors
         d_image, d_coords = warp_bwd_cuda(
             image, coords, grad_out.float().contiguous(), ctx.padding_mode,
             need_image_grad=ctx.needs_input_grad[0])
         return d_image, (d_coords if ctx.needs_input_grad[1] else None), None
+
+    @staticmethod
+    def jvp(ctx, image_t, coords_t, _):
+        image, coords = ctx.saved_tensors
+        if image_t is not None:
+            raise ValueError("the warp kernels take no image tangent: the image is data "
+                             "on the forward-mode path; detach it (grid_sample_data)")
+        if image.dtype != torch.float32:
+            raise ValueError(f"warp_jvp takes a float32 image, got {image.dtype}")
+        return warp_jvp_cuda(image, coords, coords_t.float().contiguous(), ctx.padding_mode)
 
 
 def grid_sample(image: torch.Tensor, coords: torch.Tensor,

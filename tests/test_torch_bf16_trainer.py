@@ -70,6 +70,7 @@ from packnet_sfm_tpu_torch.engine.metrics import garg_crop_mask
 from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, cast_batch, eval_forward
 from packnet_sfm_tpu_torch.engine.trainer import Trainer
 from packnet_sfm_tpu_torch.utils.convert import from_jax
+from tests.torch_cleanup import remove_tmp_path, remove_tree  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -154,7 +155,8 @@ def checkpoints(tmp_path_factory):
     img = np.kron(rng.uniform(size=(10, 15, 3)), np.ones((8, 8, 1))) \
         + 0.1 * rng.uniform(size=(80, 120, 3))
     Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(root / "im.png")
-    return root, jax_path, port_path, jmodel, variables
+    yield root, jax_path, port_path, jmodel, variables
+    remove_tree(root)
 
 
 def test_eval_half_matches_the_jax_cli(checkpoints):

@@ -53,6 +53,7 @@ from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
 from packnet_sfm_tpu_torch.engine.trainer import Trainer
 from packnet_sfm_tpu_torch.utils.convert import from_jax
 from packnet_sfm_tpu_torch.utils.save import load_depth
+from tests.torch_cleanup import remove_tmp_path, remove_tree  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -201,7 +202,8 @@ def checkpoints(tmp_path_factory):
     model = setup_model(ConfigNode.from_dict(c.to_dict()).model, device="cpu")
     model.load_state_dict(from_jax(variables["params"], variables.get("batch_stats")))
     port_path = save_checkpoint(str(root / "port_ckpt"), model, c.to_dict(), epoch=0)
-    return root, jax_path, port_path
+    yield root, jax_path, port_path
+    remove_tree(root)
 
 
 def test_meta_keys_match_the_jax_checkpoint(checkpoints):

@@ -1,4 +1,4 @@
-"""CUDA kernels K6f/K6b (csrc/softargmax.cu) and warp_fwd/warp_bwd
+"""CUDA kernels K6f/K6b (csrc/softargmax.cu) and warp_fwd/warp_bwd/warp_jvp
 (csrc/warp.cu) against their plain PyTorch versions, on the card. Skipped
 where there is no CUDA device; run there with
 
@@ -28,7 +28,9 @@ grid of another size than the image, coordinates that leave the image on
 every side, exact integer positions and the corners -1/+1. Tolerances:
 values 1e-5 (images in [0, 1); only fused multiply-adds round differently);
 gradients 1e-4 of their largest magnitude (d coords sums the channels in
-another order; d image is summed with atomics).
+another order; d image is summed with atomics). warp_jvp, the coordinate
+tangent, on the same cases against the plain warp under forward AD:
+1e-4 of the tangent's largest magnitude.
 
 The eval step (PackNetSlim01-1A, random weights) on the card against the
 CPU, same weights and batch, at 64x96 with the ground truth at 75x124 and
@@ -205,6 +207,30 @@ def test_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
 @pytest.mark.parametrize("shape,out_hw", WARP_CASES)
+def test_warp_jvp_matches_plain_forward_mode(device, shape, out_hw, padding_mode):
+    """warp_jvp through torch.func.jvp of grid_sample (the direct
+    alignment's path) against the plain warp under forward AD: one launch of
+    each kernel; an image tangent raises."""
+    image, coords, _ = _warp_inputs(shape, out_hw, device)
+    tangent = torch.randn(coords.shape, generator=torch.Generator().manual_seed(1)).to(device)
+    before = dict(warp.launch_counts)
+    out, out_t = torch.func.jvp(lambda c: warp.grid_sample(image, c, padding_mode),
+                                (coords,), (tangent,))
+    torch.cuda.synchronize()
+    assert warp.launch_counts["warp_fwd"] == before["warp_fwd"] + 1
+    assert warp.launch_counts["warp_jvp"] == before["warp_jvp"] + 1
+    want, want_t = torch.func.jvp(lambda c: warp.grid_sample_plain(image, c, padding_mode),
+                                  (coords,), (tangent,))
+    assert (out - want).abs().max().item() <= 1e-5
+    assert torch.isfinite(out_t).all()
+    assert (out_t - want_t).abs().max().item() <= 1e-4 * want_t.abs().max().item()
+    with pytest.raises(ValueError, match="no image tangent"):
+        torch.func.jvp(lambda im: warp.grid_sample(im, coords, padding_mode),
+                       (image,), (torch.ones_like(image),))
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("shape,out_hw", WARP_CASES)
 def test_bf16_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
     image, coords, grad = _warp_inputs(shape, out_hw, device)
     image = image.bfloat16()
@@ -215,7 +241,7 @@ def test_bf16_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and ck.grad.dtype == torch.float32
     assert warp.bf16_launch_counts == {"warp_fwd_bf16": 1, "warp_bwd_bf16": 1}
-    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
     cp = coords.clone().requires_grad_()
     out_p = warp.grid_sample_plain(image.float(), cp, padding_mode)
     (out_p * grad).sum().backward()
@@ -330,7 +356,7 @@ def test_eval_step_on_the_card_matches_the_cpu(device, b, hw, gt_hw):
     card = make_eval_step(model, metrics_cfg)(batch)
     torch.cuda.synchronize()
     assert sa.launch_counts == {"softargmax_fwd": 0, "softargmax_bwd": 0}
-    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
     cpu = make_eval_step(cpu_model, metrics_cfg)(batch)
     valid = ((batch["depth"][..., 0] > 0) & (batch["depth"][..., 0] < 80)
              & (garg_crop_mask(*gt_hw).numpy() > 0))     # the KITTI config's crop
@@ -362,7 +388,7 @@ def test_trainer_steps_on_the_card_match_the_cpu(device):
     got = card.train_epoch(0)
     torch.cuda.synchronize()
     assert card.step == 2 and got["peak_mib"] > 0
-    assert warp.launch_counts == {"warp_fwd": 8, "warp_bwd": 8}
+    assert warp.launch_counts == {"warp_fwd": 8, "warp_bwd": 8, "warp_jvp": 0}
     want = cpu.train_epoch(0)
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-3)
     keys = sorted(start)

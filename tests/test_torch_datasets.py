@@ -53,6 +53,7 @@ from packnet_sfm_tpu_torch.datasets.loader import DataLoader, make_transform
 from packnet_sfm_tpu_torch.engine.train import EVAL_MODES
 from packnet_sfm_tpu_torch.utils.convert import from_jax
 from tests.test_datasets import _mixed_size_tree, kitti_root  # noqa: F401 (a fixture)
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 

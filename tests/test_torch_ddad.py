@@ -39,6 +39,7 @@ from packnet_sfm_tpu_torch.datasets.loader import DataLoader, make_transform, se
 from packnet_sfm_tpu_torch.models.batch_utils import stack_multicam_batch
 from tests.test_ddad import ddad_root  # noqa: F401 (a fixture)
 from tests.test_torch_datasets import _as_read, assert_samples_equal
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -70,6 +70,7 @@ from packnet_sfm_tpu_torch.engine.trainer import Trainer
 from packnet_sfm_tpu_torch.parallel import mesh
 from packnet_sfm_tpu_torch.utils.convert import from_jax
 from tests.torch_distributed_worker import load_batch, one_step
+from tests.torch_cleanup import remove_tmp_path, remove_tree  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -252,7 +253,9 @@ def _run_all(data):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return _run_all(tmp_path_factory.mktemp("dist"))
+    root = tmp_path_factory.mktemp("dist")
+    yield _run_all(root)
+    remove_tree(root)
 
 
 def _update_cos(state0, a, b):

@@ -16,6 +16,7 @@ from PIL import Image
 from packnet_sfm_tpu import native as jax_native
 from packnet_sfm_tpu_torch import native
 from packnet_sfm_tpu_torch.datasets.kitti import load_image, load_image_u8
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")
@@ -117,3 +118,69 @@ def test_a_failed_build_falls_back_to_pillow_loudly(tmp_path, monkeypatch, capsy
     with pytest.raises(RuntimeError, match="native library unavailable"):
         native.load_image_batch(image_files, 8, 8)
     assert capsys.readouterr().out == ""         # said once
+
+
+# --- the pose-graph solver (posegraph_solver.cpp) -------------------------------------
+#
+# Tolerances: the native solver works in float64 with central-difference
+# Jacobians, the pose graphs in float32 with forward-mode ones: poses atol
+# 5e-3, tests/test_native.py's bound (measured 2.4e-7 against the port,
+# 3.5e-7 against JAX). The cost rtol 0.05, tests/test_native.py's bound,
+# holds a difference of definition, not of rounding (measured 1.2e-2): the
+# native cost sums (w r)^2 over the edges, the pose graphs' sum w r^2, and
+# this graph's loop edges weigh 3. The two float32 solves against each
+# other as tests/test_torch_egomotion.py holds them (measured 4.8e-7).
+
+def _graph():
+    import jax.numpy as jnp
+
+    from packnet_sfm_tpu.egomotion.posegraph import chain_relative_poses
+    from tests.test_egomotion import make_edges, make_trajectory
+
+    rng = np.random.default_rng(1)
+    gt = make_trajectory(rng, 8)
+    edges = {k: np.asarray(v) for k, v in make_edges(gt, rng, noise=0.02, loop=True).items()}
+    return np.asarray(chain_relative_poses(jnp.asarray(edges["Z"][:7]))), edges
+
+
+def test_the_solver_builds_on_its_own_without_the_image_libraries():
+    native.load_solver()
+    path = native.library_path(native.SOLVER_SOURCE, "packnet_posegraph")
+    assert path.parent == native.SOURCE.parents[2] / "build" / "native" and path.exists()
+    assert native.SOLVER_SOURCE.read_text().count("#include") == 3      # cmath, cstring, vector
+
+
+@pytest.mark.parametrize("optimize_scales", [True, False])
+def test_native_solver_matches_both_pose_graphs(optimize_scales):
+    import jax.numpy as jnp
+    import torch
+
+    from packnet_sfm_tpu.egomotion.posegraph import PoseGraphConfig as JaxConfig
+    from packnet_sfm_tpu.egomotion.posegraph import optimize_pose_graph as jax_optimize
+    from packnet_sfm_tpu_torch.egomotion.posegraph import PoseGraphConfig, optimize_pose_graph
+
+    T_init, edges = _graph()
+    T_nat, s_nat, c_nat = native.solve_pose_graph_native(
+        T_init, edges, num_iterations=10, optimize_scales=optimize_scales)
+    T_jax, _, c_jax = jax_optimize(jnp.asarray(T_init), {k: jnp.asarray(v) for k, v in edges.items()},
+                                   JaxConfig(num_iterations=10, optimize_scales=optimize_scales))
+    T_port, s_port, c_port = optimize_pose_graph(
+        torch.from_numpy(T_init), {k: torch.from_numpy(v) for k, v in edges.items()},
+        PoseGraphConfig(num_iterations=10, optimize_scales=optimize_scales))
+    for T, c in ((T_port.numpy(), float(c_port)), (np.asarray(T_jax), float(c_jax))):
+        np.testing.assert_allclose(T_nat, T, atol=5e-3)
+        np.testing.assert_allclose(c_nat, c, rtol=0.05)
+    assert s_nat.shape == (8,) and (optimize_scales or not s_nat.any())
+    np.testing.assert_allclose(T_port.numpy(), np.asarray(T_jax), atol=1e-5)
+
+
+def test_a_solver_that_does_not_build_raises_with_the_compiler_message(tmp_path, monkeypatch):
+    broken = tmp_path / "posegraph_solver.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOLVER_SOURCE", broken)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_solver", None)
+    monkeypatch.setattr(native, "_solver_error", None)
+    T_init, edges = _graph()
+    with pytest.raises(RuntimeError, match="solver unavailable.*exited with"):
+        native.solve_pose_graph_native(T_init, edges)

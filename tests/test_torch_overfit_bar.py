@@ -21,6 +21,7 @@ import pathlib
 import re
 
 import pytest
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 pytestmark = pytest.mark.slow
 

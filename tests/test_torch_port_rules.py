@@ -57,6 +57,7 @@ from packnet_sfm_tpu_torch.ops import softargmax as sa
 from packnet_sfm_tpu_torch.ops import warp
 from tests.test_datasets import kitti_root  # noqa: F401 (a fixture)
 from tests.test_ddad import ddad_root  # noqa: F401 (a fixture)
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -82,7 +83,10 @@ def test_importing_the_port_pulls_in_no_jax():
     for module in ("datasets.kitti", "datasets.kitti_utils", "datasets.image_folder",
                    "datasets.ddad", "models.batch_utils", "native", "parallel",
                    "parallel.mesh", "parallel.scaling", "nn.pose_resnet", "nn.sparse",
-                   "nn.packnet_san", "losses.supervised", "losses.velocity"):
+                   "nn.packnet_san", "losses.supervised", "losses.velocity", "geometry.se3",
+                   "egomotion", "egomotion.alignment", "egomotion.posegraph",
+                   "egomotion.evaluation", "egomotion.odometry", "cli.odometry", "cli.export",
+                   "cli.convert_checkpoint", "utils.torch_import"):
         assert f"packnet_sfm_tpu_torch.{module}" in MODULES
 
 
@@ -167,6 +171,8 @@ def test_warp_wrappers_take_only_cuda_or_cpu_tensors():
         warp.warp_fwd_cuda(image, coords)
     with pytest.raises(ValueError, match="CUDA"):
         warp.warp_bwd_cuda(image, coords, torch.rand(1, 6, 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        warp.warp_jvp_cuda(image, coords, torch.rand(1, 6, 8, 2))
     with pytest.raises(ValueError, match="no path"):
         warp.grid_sample(image.to("meta"), coords.to("meta"))
     with pytest.raises(ValueError, match="no path"):
@@ -176,7 +182,8 @@ def test_warp_wrappers_take_only_cuda_or_cpu_tensors():
     coords.requires_grad_()
     warp.grid_sample(image, coords).sum().backward()
     warp.grid_sample_data(image, coords, "border")
-    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0}
+    torch.func.jvp(lambda c: warp.grid_sample(image, c), (coords.detach(),), (coords.detach(),))
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
 
 
 def test_no_source_of_the_package_calls_a_library_warp():

@@ -39,6 +39,7 @@ from packnet_sfm_tpu_torch.nn.pose_resnet import PoseResNet
 from packnet_sfm_tpu_torch.nn.raysurface import RaySurfaceResNet
 from packnet_sfm_tpu_torch.nn.resnet import ResNetEncoder
 from packnet_sfm_tpu_torch.utils.convert import from_jax
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -94,6 +94,7 @@ from packnet_sfm_tpu_torch.nn import sparse
 from packnet_sfm_tpu_torch.nn.packnet_san import PackNetSAN01
 from packnet_sfm_tpu_torch.ops.image import flip_lr
 from packnet_sfm_tpu_torch.utils.convert import from_jax
+from tests.torch_cleanup import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -42,6 +42,7 @@ from packnet_sfm_tpu_torch.engine.factory import make_optimizer
 from packnet_sfm_tpu_torch.engine.trainer import Trainer
 from packnet_sfm_tpu_torch.utils.convert import from_jax
 from packnet_sfm_tpu_torch.utils.save import write_depth
+from tests.torch_cleanup import remove_tmp_path, remove_tree  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -117,14 +118,16 @@ def graft(tmp_path_factory):
     net = JaxDepthResNet(version="18")
     init = jax.jit(partial(net.init, train=True))
     own, donor = init(jax.random.PRNGKey(0), x), init(jax.random.PRNGKey(7), x)
-    path = tmp_path_factory.mktemp("pretrained") / "resnet18.npz"
+    root = tmp_path_factory.mktemp("pretrained")
+    path = root / "resnet18.npz"
     save_encoder_artifact(str(path), _np(donor["params"]["encoder"]),
                           _np(donor["batch_stats"]["encoder"]))
     wrapped = {"params": {"depth_net": _np(own["params"])},
                "batch_stats": {"depth_net": _np(own["batch_stats"])}}
     grafted = jax_graft(str(path), wrapped, "depth_net")
-    return dict(x=x, net=net, own=_np(own), path=path,
-                grafted={k: _np(grafted[k]["depth_net"]) for k in ("params", "batch_stats")})
+    yield dict(x=x, net=net, own=_np(own), path=path,
+               grafted={k: _np(grafted[k]["depth_net"]) for k in ("params", "batch_stats")})
+    remove_tree(root)
 
 
 def _port_trainer(graft, **depth_net):
@@ -278,7 +281,8 @@ def depth_folders(tmp_path_factory):
         pred = np.abs(gt + rng.normal(0, 2, size=gt.shape)) * 1.3 + 0.5
         write_depth(str(root / "pred" / f"{i:03d}.npz"), pred.astype(np.float32))
         write_depth(str(root / "gt" / f"{i:03d}.png"), gt.astype(np.float32))
-    return str(root / "pred"), str(root / "gt")
+    yield str(root / "pred"), str(root / "gt")
+    remove_tree(root)
 
 
 @pytest.mark.parametrize("flags", [[], ["--use_gt_scale"], ["--crop", "garg", "--max_depth", "50"],

@@ -48,6 +48,7 @@ from packnet_sfm_tpu_torch.engine.train import EVAL_MODES, make_train_step, zero
 from packnet_sfm_tpu_torch.engine.trainer import Trainer
 from packnet_sfm_tpu_torch.models.sfm import model_forward
 from packnet_sfm_tpu_torch.utils.convert import from_jax
+from tests.torch_cleanup import remove_tmp_path, remove_tree  # noqa: F401 (an autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -180,7 +181,8 @@ def full_run(tmp_path_factory):
     path = tmp_path_factory.mktemp("full")
     trainer = Trainer(_resume_config(path), device="cpu")
     trainer.fit()
-    return path, _snapshot(trainer)
+    yield path, _snapshot(trainer)
+    remove_tree(path)
 
 
 def test_full_run_keeps_every_epoch_checkpoint(full_run):
