@@ -12,7 +12,9 @@ Phases, each of which fails the run:
    run twice on the same inputs must return the same bits; warp_fwd/warp_bwd
    (csrc/warp.cu) against theirs on coordinates that leave the image on
    every side, exact integer coordinates and -1/+1, both padding modes,
-   B = 1, 3 and 8, C = 3, 1 and 4, with d image on, and their times at the four
+   B = 1, 3 and 8, C = 3, 1 and 4, with d image on, and on a band of half
+   the image's rows against the whole image (phase 11's case: [2,384,1280,3]
+   at [2,192,1280,2]), and their times at the four
    shapes of the flagship loss beside F.grid_sample's; the bfloat16-image
    variants warp_fwd_bf16/warp_bwd_bf16 on the same cases against the plain
    version on the widened image, and their times at the four shapes beside
@@ -130,7 +132,7 @@ Phases, each of which fails the run:
    cli.odometry builds it in float32, as the JAX CLI does): cli.odometry
    over the first drive's 20 frames plain, with --refine-direct and with
    both refinements, --gt the drive's OXTS poses in KITTI odometry format,
-   then each on the first 5 frames on the card and on the CPU against each
+   then each on the first 3 frames on the card and on the CPU against each
    other (the CPU would take minutes over the drive), the launch counters read
    around each run (warp_jvp 19 x 8 x 6 = 912 times with --refine-direct,
    0 without); warp_jvp on the first pair's real depth and pose against the
@@ -142,6 +144,18 @@ Phases, each of which fails the run:
    infer's forward; cli.convert_checkpoint of a reference-format .ckpt that
    the phase writes from the same weights under the reference's names, whose
    inverse depth must equal the original's.
+11. The (data x space) grid (``parallel/mesh.make_mesh_2d``,
+   ``parallel/spatial.py``): tools/hr_2dmesh.py's HR step (the JAX
+   package's docs/bench_hr_2dmesh.py recipe: PackNet01-1A + PoseNet at full
+   width, float32, remat on, 384x1280, batch 1, from seed 0) for
+   SPACE_STEPS steps in one process as the recipe runs it (the fused pack
+   conv), in one process with the two-step pack conv, and on two space
+   ranks over gloo on card 0, each band 192 rows; the grid's first loss
+   and first Adam update against the two-step process's, its loss against
+   the fused one's, each rank's peak below the fused process's, and 4
+   launches of warp_fwd and warp_bwd a step on each rank, at band
+   coordinates against whole images (phase 2 holds the four warp kernels
+   on that case).
 
 Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
 it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
@@ -152,15 +166,17 @@ one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
 {"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's,
 one line {"data": {...}} phase 7's, one line {"distributed": {...}}
 phase 8's (with "backend" and "ranks_per_card"), one line {"models":
-{...}} phase 9's and one line {"odometry": {...}} phase 10's.
+{...}} phase 9's, one line {"odometry": {...}} phase 10's and one line
+{"space": {...}} phase 11's.
 The line before the last lists each kernel with its dtype, its launches on
 its train path's steps (the bfloat16 steps; the float32-image warp's on the
 float32 flagship steps), error against the plain version, time, plain
 time, bound and, where one PyTorch call computes the same function, that
 call's time, and each kernel's launches on phase 7's runs
 ("data_launches"), by rank on phase 8's ("distributed_launches"), by
-run on phase 9's ("models_launches") and on phase 10's
-("odometry_launches"); warp_jvp's launches are the --refine-direct run's. A
+run on phase 9's ("models_launches"), on phase 10's
+("odometry_launches") and by run and rank on phase 11's
+("space_launches"); warp_jvp's launches are the --refine-direct run's. A
 bound is the largest of the bytes' time, the operations' time and the time
 of an empty kernel's launch, measured here.
 """
@@ -169,6 +185,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -708,6 +725,10 @@ def warp_kernel_phase(device, shapes):
     # general channel loop
     cases += [(3, 33, 71, 3, 37, 75, "zeros"), (3, 33, 71, 4, 37, 75, "border")]
     cases.append(shapes[0] + (3,) + shapes[0][1:] + ("zeros",))
+    # a band of rows against the whole image, as phase 11's grid warps: the
+    # HR recipe's finest scale (two contexts, 384x1280, space 2) and a small
+    # band in border mode
+    cases += [(2, 384, 1280, 3, 192, 1280, "zeros"), (3, 48, 160, 1, 24, 160, "border")]
     for b, h, w, c, ho, wo, pad in cases:
         image, coords, grad = warp_inputs(gen, b, h, w, c, ho, wo, device, spread=1.3)
         out = warp.warp_fwd_cuda(image, coords, pad)
@@ -1965,7 +1986,7 @@ DIST_TIMEOUT = 300
 # the one-sided SIGTERM: phase 6's recipe at repeat [DRAIN_REPEAT], so that
 # each of two ranks has 2 * DRAIN_REPEAT steps an epoch; rank 1 is signalled
 # DRAIN_DELAY s after it printed its model
-DRAIN_REPEAT, DRAIN_DELAY = 12, 1.5
+DRAIN_REPEAT, DRAIN_DELAY = 6, 1.5
 # The first train_kitti.yaml step on two ranks of four rows against one rank
 # on the eight: the mean of the ranks' losses relative, as the card against
 # the CPU in bfloat16 (convolutions of another batch may take another
@@ -2144,6 +2165,21 @@ def dist_worker(job_path):
     rank = int(os.environ.get("RANK", "0"))
     (out / f"{label}_rank{rank}.pid").write_text(str(os.getpid()))
     res = {"rank": rank}
+    if kind == "hr_one_process":
+        # phase 11's one-process runs, one after the other, each from the
+        # same weights and batch (tools/hr_2dmesh.py's run_rank)
+        import torch
+
+        from packnet_sfm_tpu_torch.tools import hr_2dmesh
+
+        for label, mode in job["runs"]:
+            path = out / f"{label}.json"
+            run = hr_2dmesh.run_rank(hr_2dmesh.parse_args(
+                job["args"] + ["--pack-mode", mode, "--out", str(path)]))
+            path.write_text(json.dumps(run))
+            gc.collect()
+            torch.cuda.empty_cache()
+        return 0
     if kind == "plain_step":
         # no process group: the step without DDP, in a process of its own
         from packnet_sfm_tpu_torch.parallel.scaling import time_steps
@@ -2651,13 +2687,14 @@ ODOMETRY_RUNS = (("plain", {}), ("direct", {"refine_direct": True}),
 DIRECT_ITERATIONS, JVP_COLUMNS, FWD_PER_ITERATION = 8, 6, 10
 # The card against the same CLI on the CPU, on the drive's first CPU_FRAMES
 # frames (the CPU's three runs took 91 s on the first 8 frames: over the
-# whole drive they would take minutes): the largest difference of a pose
+# whole drive they would take minutes; 5 frames took 67 s, so that phase
+# 11 fits, 3 frames a run): the largest difference of a pose
 # matrix entry (rotations, and translations in the predicted scale).
 # Float32 networks whose convolutions sum in other orders on the two
 # devices, then 8 Gauss-Newton steps a pair whose line search may take
 # another trial where two costs tie; measured on an H100 over 8 frames:
 # plain 6.0e-8, --refine-direct 2.0e-5, both refinements 5.7e-6.
-CPU_FRAMES = 5
+CPU_FRAMES = 3
 TOL_ODOMETRY_CPU = 1e-3
 # warp_jvp on the first pair's real depth and pose against the plain warp
 # under forward AD, relative to the tangent's largest magnitude
@@ -2954,6 +2991,113 @@ def odometry_phase(device):
     return result
 
 
+# Phase 11: the (data x space) grid at the JAX package's HR recipe
+# (tools/hr_2dmesh.py: PackNet01-1A + PoseNet, float32, remat on, 384x1280,
+# batch 1, weights and frames from seed 0): one process as the recipe runs
+# it (the fused pack conv at this size), one process with the two-step pack
+# conv that a space axis takes, and two space ranks over gloo on card 0
+# (NCCL refuses two ranks on one card), all from the same weights and batch.
+# The grid against the two-step process: the first step's loss relative and
+# the cosine of the first Adam update, as tests/test_torch_spatial.py holds
+# them. Against the fused process the loss alone: Adam's first update is
+# about lr * sign(g), and the fused and two-step convolutions round
+# differently, which flips the sign of near-zero gradients (the two
+# processes' update cosine is the figure beside it). 4 launches of warp_fwd
+# and warp_bwd a step on each rank; each rank's peak below the fused
+# process's.
+SPACE_STEPS = 3
+SPACE_TIMEOUT = 240
+TOL_SPACE_LOSS = 1e-5
+TOL_SPACE_COS = 0.9999
+SPACE_RUNS = (("one_process", 1, "auto"), ("one_process_two_step", 1, "two_step"),
+              ("space_2", 2, "auto"))
+
+
+def hr_runs(root):
+    """tools/hr_2dmesh.py on card 0: SPACE_RUNS's one-process runs in one
+    process (``--worker``), then the grid's ranks; returns each run's JSON
+    line."""
+    import os
+
+    args = ["--data", "1", "--steps", str(SPACE_STEPS), "--device", "cuda:0"]
+    single = [(label, mode) for label, space, mode in SPACE_RUNS if space == 1]
+    job = root / "hr_one_process.json"
+    job.write_text(json.dumps(dict(kind="hr_one_process", out=str(root), label="hr",
+                                   runs=single, args=args + ["--space", "1"])))
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    finish(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--worker", str(job)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True),
+           "space_one_process", timeout=SPACE_TIMEOUT)
+    log(f"the one-process runs: {time.perf_counter() - t0:.1f} s with the start")
+    for label, space, mode in SPACE_RUNS:
+        if space > 1:
+            t0 = time.perf_counter()
+            finish(torchrun(space, ["-m", "packnet_sfm_tpu_torch.tools.hr_2dmesh", "--worker"]
+                            + args + ["--space", str(space), "--pack-mode", mode,
+                                      "--backend", "gloo", "--out", root / f"{label}.json"]),
+                   f"space_{label}", timeout=SPACE_TIMEOUT)
+            log(f"{label}: {time.perf_counter() - t0:.1f} s with the start")
+    runs = {label: json.loads((root / f"{label}.json").read_text()) for label, _, _ in SPACE_RUNS}
+    for label, r in runs.items():
+        log(f"{label} (pack mode {r['pack_mode']}): losses {r['losses']}, step "
+            f"{r['step_ms']:.2f} ms (steps 2-{SPACE_STEPS}), peak MiB by rank "
+            f"{[round(x['peak_mib'], 1) for x in r['ranks']]}, launches by rank "
+            f"{[x['launches'] for x in r['ranks']]}, collectives a step "
+            f"{r['ranks'][0]['collectives_per_step']}")
+    return runs
+
+
+def space_phase():
+    """Phase 11 (see the module docstring); returns its numbers."""
+    import torch
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_space"
+    root.mkdir(parents=True, exist_ok=True)
+    (ROOT / "build" / "chip_smoke_dist").mkdir(parents=True, exist_ok=True)
+    log(gpu_name_and_power())
+    runs = hr_runs(root)
+    first = {k: torch.load(root / f"{k}.json.update.pt") for k in runs}
+    for k in runs:
+        (root / f"{k}.json.update.pt").unlink()
+
+    def cos(a, b, key):
+        u, v = first[a][key].double(), first[b][key].double()
+        return float(u @ v / u.norm() / v.norm())
+
+    def loss_rel(a, b):
+        return [abs(x - y) / abs(x) for x, y in zip(runs[a]["losses"], runs[b]["losses"])]
+
+    pairs = (("one_process_two_step", "space_2"), ("one_process", "space_2"),
+             ("one_process", "one_process_two_step"))
+    agree = {f"{a}/{b}": dict(loss_rel=loss_rel(a, b), update_cos=cos(a, b, "update"),
+                              grad_cos=cos(a, b, "grad")) for a, b in pairs}
+    for pair, r in agree.items():
+        log(f"{pair}: loss relative by step {r['loss_rel']}, first update's cosine "
+            f"{r['update_cos']:.7f}, first gradient's {r['grad_cos']:.9f}")
+    one, two_step, grid = runs["one_process"], runs["one_process_two_step"], runs["space_2"]
+    peak_share = [x["peak_mib"] / one["ranks"][0]["peak_mib"] for x in grid["ranks"]]
+    log(f"each rank's peak {peak_share} of the one process's, "
+        f"{[x['peak_mib'] / two_step['ranks'][0]['peak_mib'] for x in grid['ranks']]} of the "
+        f"two-step process's; step {grid['step_ms'] / one['step_ms']:.2f}x the one process's, "
+        f"{grid['step_ms'] / two_step['step_ms']:.2f}x the two-step process's")
+    want = {"warp_fwd": 4 * SPACE_STEPS, "warp_bwd": 4 * SPACE_STEPS}
+    if not all(x["launches"] == {k: want.get(k, 0) for k in x["launches"]}
+               for r in runs.values() for x in r["ranks"]):
+        raise AssertionError(f"launches other than 4 of each float32 warp a step: {runs}")
+    like = agree["one_process_two_step/space_2"]
+    if not (like["loss_rel"][0] <= TOL_SPACE_LOSS and like["update_cos"] >= TOL_SPACE_COS
+            and agree["one_process/space_2"]["loss_rel"][0] <= TOL_SPACE_LOSS
+            and all(s < 1.0 for s in peak_share)
+            and all(all(map(math.isfinite, r["losses"])) for r in runs.values())):
+        raise AssertionError("the space grid's step parts from one process's")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 11 took {seconds:.1f} s")
+    return dict(runs=runs, agreement=agree, peak_share=peak_share, seconds=seconds)
+
+
 def main():
     import torch
 
@@ -3021,6 +3165,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     odometry = odometry_phase(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    space = space_phase()
 
     # each kernel's launches are those of the train path it belongs to, as
     # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
@@ -3076,6 +3223,9 @@ def main():
         # phase 10's, by odometry run
         entry["odometry_launches"] = {run: odometry[run]["launches"][name]
                                       for run, _ in ODOMETRY_RUNS}
+        # phase 11's, by run and rank, over its SPACE_STEPS steps
+        entry["space_launches"] = {run: [x["launches"][name] for x in rec["ranks"]]
+                                   for run, rec in space["runs"].items()}
         kernels.append(entry)
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
@@ -3084,6 +3234,7 @@ def main():
     print(json.dumps({"distributed": dist}))
     print(json.dumps({"models": models}))
     print(json.dumps({"odometry": odometry}))
+    print(json.dumps({"space": space}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,12 @@ casts the prepared batch's network inputs (the images and 'input_depth')
 to the compute dtype and the loss back to float32; the targets ('depth',
 'pose_context') and the intrinsics stay float32 (``cast_batch``). The eval
 step casts nothing: the model casts inside.
+
+On a (data x space) grid (``parallel/mesh.make_mesh_2d``, passed as
+``mesh``) each rank gets its data rank's whole samples, and the depth
+network runs on the rank's band of their rows (``parallel/spatial.py``):
+the train step's loss and gradient are the whole batch's, the eval step
+gathers the bands of the inverse depth before the metrics.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from packnet_sfm_tpu_torch.models.sfm import (
 )
 from packnet_sfm_tpu_torch.ops.image import flip_lr
 from packnet_sfm_tpu_torch.ops.jitter import apply_jitter
+from packnet_sfm_tpu_torch.parallel import spatial
+from packnet_sfm_tpu_torch.parallel.mesh import Mesh2D, gather_rows
 
 METRIC_KEYS = ("loss", "photometric_loss", "smoothness_loss",
                "supervised_loss", "supervised_loss_rgbd", "depth_loss",
@@ -131,23 +139,34 @@ def cast_batch(batch: Dict, dtype) -> Dict:
 
 
 class _LossModule(torch.nn.Module):
-    """``model_loss`` as a module's forward, so that the forward that
-    ``DistributedDataParallel`` wraps is the one whose graph backward
-    walks."""
+    """``model_loss`` as a module's forward (on this rank's band, if any),
+    so that the forward that ``DistributedDataParallel`` wraps is the one
+    whose graph backward walks."""
 
-    def __init__(self, model: SfmModelDef):
+    def __init__(self, model: SfmModelDef, band: Optional[spatial.Band] = None):
         super().__init__()
         self.model = model
+        self.band = band
 
     def forward(self, batch: Dict, progress: float, num_scales: Optional[int], generator):
         return model_loss(self.model, batch, progress=progress, num_scales=num_scales,
-                          generator=generator)
+                          generator=generator, band=self.band)
+
+
+def _space_band(model: SfmModelDef, mesh: Optional[Mesh2D]) -> Optional[spatial.Band]:
+    """This rank's band of ``mesh``, with the depth network checked; None
+    without a space axis."""
+    band = mesh.band() if mesh is not None else None
+    if band is not None:
+        spatial.network_stride(model.depth_net)
+    return band
 
 
 def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, scheduler=None,
                     num_scales: Optional[int] = None, grad_accum: int = 1,
                     generator: Optional[torch.Generator] = None,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    mesh: Optional[Mesh2D] = None):
     """Returns step(acc, batch, progress) -> acc.
 
     ``batch`` is a host batch (see ``prepare_train_batch``); ``progress``
@@ -172,9 +191,25 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     A kind without a loss (``SfmModel``, ``GenericSfmModel``) takes no
     backward, so it is refused there: DDP would wait for a reduction that
     never comes.
+
+    ``mesh``, a (data x space) grid (``parallel/mesh.make_mesh_2d``): each
+    rank takes its data rank's whole samples (jittered alike on every rank
+    of the space group) and runs the depth network on its band of their
+    rows (PackNet's pack convolutions take the two-step path there,
+    ``ops/fold_conv.fused_pack_conv``). Each rank's loss is its band's
+    share of its data rank's loss; its backward, scaled by the space count,
+    gives DDP's average over every rank (over ``mesh.grad_group``) the mean
+    over the data ranks of the whole samples' gradient. On the grid the
+    gradients are views of DDP's buckets (no second copy of them at the
+    resolutions the grid is for). The metrics are the shares summed over
+    the space group: every rank of it reports its data rank's loss. A
+    height that does not split into bands of a multiple of the depth
+    network's stride raises ``ValueError`` on every rank, before the step's
+    first collective (``models/sfm.check_band``).
     """
     device = next(model.parameters()).device
-    loss_module = _LossModule(model)
+    band = _space_band(model, mesh)
+    loss_module = _LossModule(model, band)
     distributed = torch.distributed.is_initialized()
     if distributed and not model.has_loss:
         raise ValueError(f"{model.kind} has no loss to train: train it in one process, "
@@ -183,7 +218,12 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
         loss_module = DistributedDataParallel(
             loss_module, device_ids=[device.index] if device.type == "cuda" else None,
             broadcast_buffers=False,
-            find_unused_parameters=scales_used(model, num_scales) < DEPTH_SCALES)
+            find_unused_parameters=scales_used(model, num_scales) < DEPTH_SCALES,
+            process_group=mesh.grad_group if mesh is not None else None,
+            gradient_as_bucket_view=mesh is not None)
+    # each rank's loss is its band's share: DDP's mean over every rank of the
+    # shares' gradients, times the bands, is the data ranks' mean
+    scale = band.count if band is not None else 1
 
     def step(acc: Dict[str, torch.Tensor], batch: Dict, progress: float = 0.0):
         batch = prepare_train_batch(batch, device)
@@ -198,8 +238,8 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
             with loss_module.no_sync() if defer else contextlib.nullcontext():
                 loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
                 if model.has_loss:      # the kinds without a loss have nothing to step
-                    (loss.float() / max(grad_accum, 1)).backward()
-            for k, v in metrics.items():
+                    (loss.float() * scale / max(grad_accum, 1)).backward()
+            for k, v in spatial.sum_over(metrics, band).items():
                 totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
         optimizer.step()
         if scheduler is not None:
@@ -216,15 +256,16 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
 EVAL_MODES = ("depth", "depth_pp", "depth_gt", "depth_pp_gt")
 
 
-def eval_forward(model: SfmModelDef, rgb: torch.Tensor, **inputs) -> torch.Tensor:
+def eval_forward(model: SfmModelDef, rgb: torch.Tensor,
+                 band: Optional[spatial.Band] = None, **inputs) -> torch.Tensor:
     """Inverse depth of the straight and the flipped inputs, [2B, H, W, 1]:
     one batched depth forward of cat([x, flip_lr(x)]) for the image and for
     every other input of the depth network given in ``inputs`` (PackNet-
     SAN's 'input_depth'), in eval mode (BatchNorm normalizes with its
-    running statistics)."""
+    running statistics). On a ``band``, the band's rows of it."""
     both = {k: torch.cat([v, flip_lr(v)], dim=0) for k, v in dict(inputs, rgb=rgb).items()}
     with torch.inference_mode():
-        out = model_forward(model, both, train=False)
+        out = model_forward(model, both, train=False, band=band)
     return out["inv_depths"][0].float()
 
 
@@ -251,7 +292,8 @@ def eval_metrics(inv2: torch.Tensor, gt: torch.Tensor,
         }
 
 
-def make_eval_step(model: SfmModelDef, metrics_cfg: DepthMetricsConfig):
+def make_eval_step(model: SfmModelDef, metrics_cfg: DepthMetricsConfig,
+                   mesh: Optional[Mesh2D] = None):
     """Returns step(batch) -> {mode: [B, 7] per-sample metric rows, and
     'inv_depth'} (see ``eval_metrics``), on the model's device, float32.
 
@@ -262,14 +304,25 @@ def make_eval_step(model: SfmModelDef, metrics_cfg: DepthMetricsConfig):
     prediction is brought to it as ``metrics_cfg.scale_output`` says.
     Per-sample rows, not batch means, so that the caller can mask pad rows
     and scatter rows by dataset index.
+
+    On a (data x space) ``mesh`` every rank of a space group takes its data
+    rank's whole samples, runs the depth forward on its band of rows and
+    gathers the bands (``parallel/mesh.gather_rows``) before the metrics:
+    every rank of the group returns the same rows, its data rank's, which a
+    caller reducing across ranks counts once (from ``space_index`` 0).
     """
     device = next(model.parameters()).device
     extra_keys = [k for k in model.input_keys if k not in ("rgb", "intrinsics")]
+    band = _space_band(model, mesh)
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        if band is not None:
+            spatial.check_rows(np.shape(batch["rgb"])[1], band.count,
+                               spatial.network_stride(model.depth_net))
         rgb = to_device_float(batch["rgb"], device)
         gt = to_device_float(batch["depth"], device)
         inputs = {k: to_device_float(batch[k], device) for k in extra_keys if k in batch}
-        return eval_metrics(eval_forward(model, rgb, **inputs), gt, metrics_cfg)
+        inv2 = gather_rows(eval_forward(model, rgb, band=band, **inputs), mesh)
+        return eval_metrics(inv2, gt, metrics_cfg)
 
     return step

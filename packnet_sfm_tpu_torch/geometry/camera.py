@@ -8,6 +8,11 @@ Conventions, as in the JAX package:
   align_corners=True semantics and z clamped at 1e-5.
 - ``scale_intrinsics`` uses the +0.5 pixel-centre convention.
 Intrinsics are applied per scalar (fx, fy, cx, cy), not by 3x3 products.
+
+A depth map may be a band of rows of the image (``parallel/spatial.py``):
+``reconstruct`` then takes the band's first row (``row0``), so that its
+pixels' v are the image's, and ``project`` the image's height, so that v
+normalizes by the whole image's H - 1.
 """
 
 from __future__ import annotations
@@ -60,10 +65,11 @@ def _fxfycxcy(K: torch.Tensor):
             K[:, 0, 2][:, None, None], K[:, 1, 2][:, None, None])
 
 
-def reconstruct(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
-    """Lift a depth map [B, H, W, 1] to world-frame points [B, H, W, 3]."""
+def reconstruct(cam: Camera, depth: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """Lift a depth map [B, H, W, 1] (rows ``row0`` on of the image) to
+    world-frame points [B, H, W, 3]."""
     _, h, w, _ = depth.shape
-    grid = image_grid(h, w, dtype=depth.dtype, device=depth.device)   # (u, v, 1)
+    grid = image_grid(h, w, dtype=depth.dtype, device=depth.device, row0=row0)  # (u, v, 1)
     fx, fy, cx, cy = _fxfycxcy(cam.K)
     d = depth[..., 0]
     x = (grid[None, ..., 0] - cx) / fx * d
@@ -74,10 +80,12 @@ def reconstruct(cam: Camera, depth: torch.Tensor) -> torch.Tensor:
     return transform_points(invert_pose(cam.Tcw), pts_c)
 
 
-def project(cam: Camera, points: torch.Tensor) -> torch.Tensor:
+def project(cam: Camera, points: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
     """Project world points [B, H, W, 3] to normalized pixel coords
-    [B, H, W, 2] in [-1, 1] (align_corners=True); z clamped at 1e-5."""
+    [B, H, W, 2] in [-1, 1] (align_corners=True) of an image of ``height``
+    rows (None: H); z clamped at 1e-5."""
     _, h, w, _ = points.shape
+    h = height or h
     if cam.Tcw is not None:
         points = transform_points(cam.Tcw, points)
     fx, fy, cx, cy = _fxfycxcy(cam.K)
@@ -89,10 +97,13 @@ def project(cam: Camera, points: torch.Tensor) -> torch.Tensor:
 
 
 def view_synthesis(ref_image: torch.Tensor, depth: torch.Tensor, ref_cam: Camera,
-                   cam: Camera, padding_mode: str = "zeros") -> torch.Tensor:
+                   cam: Camera, padding_mode: str = "zeros", row0: int = 0,
+                   height: Optional[int] = None) -> torch.Tensor:
     """Warp ``ref_image`` into the frame of ``cam`` given its ``depth``:
     reconstruct -> project -> bilinear grid sample (the warp kernels on
-    CUDA tensors)."""
-    world_points = reconstruct(cam, depth)
-    ref_coords = project(ref_cam, world_points)
+    CUDA tensors). ``depth`` may be the band of rows ``row0`` on of an
+    image of ``height`` rows: the warp then samples the whole
+    ``ref_image`` at the band's coordinates."""
+    world_points = reconstruct(cam, depth, row0)
+    ref_coords = project(ref_cam, world_points, height)
     return grid_sample(ref_image, ref_coords, padding_mode=padding_mode)

@@ -6,6 +6,13 @@ identity-reprojection terms), edge-aware smoothness.
 With ``clip_loss == 0`` the contexts (and their identity terms) are stacked
 on the batch axis, so each scale runs one warp and one L1 + SSIM chain;
 ``clip_loss`` pools its statistics per map and takes the per-context path.
+
+Given a ``band`` (``parallel/spatial.Band``) the inverse depths are this
+rank's bands of rows, and the target and context images whole: each scale
+resizes the whole images, warps the whole context at the band's
+coordinates and compares the band's rows of the target, and the loss is
+this band's share (its sums over the whole batch's pixel counts; the shares
+sum to the loss over the space group).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from packnet_sfm_tpu_torch.geometry.camera import Camera, scale_intrinsics, view
 from packnet_sfm_tpu_torch.losses.smoothness import smoothness_loss
 from packnet_sfm_tpu_torch.ops.image import match_scales
 from packnet_sfm_tpu_torch.ops.ssim import ssim_loss
+from packnet_sfm_tpu_torch.parallel import spatial
 from packnet_sfm_tpu_torch.parallel.mesh import batch_group, global_mean_var
 
 
@@ -46,8 +54,8 @@ def inv2depth(inv_depth: torch.Tensor) -> torch.Tensor:
     return 1.0 / inv_depth.clamp(min=1e-6)
 
 
-def _photometric_map(est: torch.Tensor, ref: torch.Tensor,
-                     cfg: MultiViewPhotometricConfig) -> torch.Tensor:
+def _photometric_map(est: torch.Tensor, ref: torch.Tensor, cfg: MultiViewPhotometricConfig,
+                     band: Optional[spatial.Band] = None) -> torch.Tensor:
     """Per-pixel L1 + SSIM photometric residual [B, H, W, 1], then the
     optional clip at mean + clip_loss * std (std with ddof 0, as jnp.std),
     over the global batch: with more than one rank the statistics are taken
@@ -59,11 +67,12 @@ def _photometric_map(est: torch.Tensor, ref: torch.Tensor,
     types make SSIM's moments of a bfloat16 image bfloat16 too, but XLA
     computes each fused chain of them in float32 and rounds once; rounding
     every op, as eager PyTorch would, cancels E[y^2] - E[y]^2 in 8 bits and
-    moves the flagship loss by 5e-3 of itself."""
+    moves the flagship loss by 5e-3 of itself. On a band, SSIM's rows
+    across its edges come from the neighbouring bands."""
     est, ref = est.float(), ref.float()
     l1 = torch.mean(torch.abs(est - ref), dim=-1, keepdim=True)
     if cfg.ssim_loss_weight > 0.0:
-        s = torch.mean(ssim_loss(est, ref, cfg.C1, cfg.C2), dim=-1, keepdim=True)
+        s = torch.mean(ssim_loss(est, ref, cfg.C1, cfg.C2, band), dim=-1, keepdim=True)
         loss = cfg.ssim_loss_weight * s + (1.0 - cfg.ssim_loss_weight) * l1
     else:
         loss = torch.abs(est - ref)
@@ -86,6 +95,7 @@ def multiview_photometric_loss(
     poses: Sequence[torch.Tensor],
     cfg: MultiViewPhotometricConfig,
     ref_K: Optional[torch.Tensor] = None,
+    band: Optional[spatial.Band] = None,
 ):
     """The self-supervised photometric loss: (loss, metrics).
 
@@ -93,7 +103,7 @@ def multiview_photometric_loss(
     [B, H, W, 3] context frames; inv_depths: list of [B, Hs, Ws, 1]
     multi-scale inverse depths of the target; K: [B, 3, 3] intrinsics
     (``ref_K`` defaults to K); poses: list of [B, 4, 4] target->context
-    transforms, one per context.
+    transforms, one per context. ``band``: see the module docstring.
     """
     if ref_K is None:
         ref_K = K
@@ -101,7 +111,16 @@ def multiview_photometric_loss(
     inv_depths = list(inv_depths)[:n]
     full_w = image.shape[2]
     shapes = [tuple(d.shape[1:3]) for d in inv_depths]
+    starts = [0] * n
+    if band is not None:        # the whole image's shapes, and each band's first row
+        starts = [band.start(h) for h, _ in shapes]
+        shapes = [(band.rows(h), w) for h, w in shapes]
     images = match_scales(image, shapes)
+
+    def rows(t):                # the rows that the loss compares
+        return t if band is None else band.take(t)
+
+    targets = [rows(t) for t in images]
     depths = [inv2depth(d) for d in inv_depths]
     K, ref_K = K.float(), ref_K.float()
 
@@ -121,10 +140,11 @@ def multiview_photometric_loss(
             cam2 = Camera(K=torch.cat([K_s] * n_ctx, dim=0))
             ref_cam2 = Camera(K=torch.cat([refK_s] * n_ctx, dim=0), Tcw=poses_2)
             warped2 = view_synthesis(refs2, depth2, ref_cam2, cam2,
-                                     padding_mode=cfg.padding_mode)
-            est = torch.cat([warped2, refs2], dim=0) if cfg.automask_loss else warped2
+                                     padding_mode=cfg.padding_mode, row0=starts[i],
+                                     height=shapes[i][0])
+            est = torch.cat([warped2, rows(refs2)], dim=0) if cfg.automask_loss else warped2
             reps = est.shape[0] // b
-            pm = _photometric_map(est, torch.cat([images[i]] * reps, dim=0), cfg)
+            pm = _photometric_map(est, torch.cat([targets[i]] * reps, dim=0), cfg, band)
             photometric_losses[i] = [pm[k * b:(k + 1) * b] for k in range(reps)]
     else:
         cams = [Camera(K=scale_intrinsics(K, w / float(full_w))) for (_, w) in shapes]
@@ -133,26 +153,27 @@ def multiview_photometric_loss(
                 sf = shapes[i][1] / float(full_w)
                 ref_cam = Camera(K=scale_intrinsics(ref_K, sf), Tcw=pose)
                 warped = view_synthesis(match_scales(ref_image, [shapes[i]])[0], depths[i],
-                                        ref_cam, cams[i], padding_mode=cfg.padding_mode)
-                photometric_losses[i].append(_photometric_map(warped, images[i], cfg))
+                                        ref_cam, cams[i], padding_mode=cfg.padding_mode,
+                                        row0=starts[i], height=shapes[i][0])
+                photometric_losses[i].append(_photometric_map(warped, targets[i], cfg, band))
             if cfg.automask_loss:
                 ref_scaled = match_scales(ref_image, shapes)
                 for i in range(n):
                     photometric_losses[i].append(
-                        _photometric_map(ref_scaled[i], images[i], cfg))
+                        _photometric_map(rows(ref_scaled[i]), targets[i], cfg, band))
 
     def reduce_one(losses: list) -> torch.Tensor:
         if cfg.photometric_reduce_op == "mean":
-            return sum(l.mean() for l in losses) / len(losses)
+            return sum(spatial.mean(l, band) for l in losses) / len(losses)
         if cfg.photometric_reduce_op == "min":
-            return torch.cat(losses, dim=-1).min(dim=-1).values.mean()
+            return spatial.mean(torch.cat(losses, dim=-1).min(dim=-1).values, band)
         raise ValueError(f"Unknown photometric_reduce_op {cfg.photometric_reduce_op}")
 
     photometric_loss = sum(reduce_one(photometric_losses[i]) for i in range(n)) / n
     metrics = {"photometric_loss": photometric_loss}
     loss = photometric_loss
     if cfg.smooth_loss_weight > 0.0:
-        s_loss = smoothness_loss(inv_depths, images, cfg.smooth_loss_weight)
+        s_loss = smoothness_loss(inv_depths, images, cfg.smooth_loss_weight, band)
         metrics["smoothness_loss"] = s_loss
         loss = loss + s_loss
     return loss, metrics

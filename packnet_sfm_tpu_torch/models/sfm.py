@@ -22,6 +22,14 @@ and ``supervised_loss`` that ``tools/profile_step.py`` reads. The kinds
 During training the depth network's inputs (every image-like key of
 ``input_keys``: 'rgb', and 'input_depth' for completion) are flipped left
 to right together at random, and its inverse depths flipped back.
+
+On a band of rows (``band``, ``parallel/spatial.py``; ``SelfSupModel`` with
+PackNet or DepthResNet) the batch is whole: the depth network runs on the
+band's rows of the image, the pose network on the whole images (every rank
+of the space group computes the same poses), and the loss is the band's
+share. The pose's gradient is still the whole batch's: each rank's share of
+the loss reaches the pose only through its own rows, and the shares'
+gradients are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from packnet_sfm_tpu_torch.losses.photometric import (
 from packnet_sfm_tpu_torch.losses.supervised import SupervisedLossConfig, supervised_loss
 from packnet_sfm_tpu_torch.losses.velocity import velocity_loss
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate_image
+from packnet_sfm_tpu_torch.parallel import spatial
 
 MODEL_KINDS = ("SfmModel", "SelfSupModel", "SemiSupModel", "VelSupModel",
                "SemiSupCompletionModel", "GenericSfmModel", "GenericSelfSupModel")
@@ -108,23 +117,27 @@ def _normalize_depth_output(out) -> Dict:
     return dict(out) if isinstance(out, dict) else {"inv_depths": list(out)}
 
 
-def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool) -> Dict:
+def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool,
+                     band: Optional[spatial.Band] = None) -> Dict:
     """Depth forward with the random left-right flip of training.
 
     The flip is drawn on the host from ``generator`` (a CPU
     ``torch.Generator``), so it is a Python bool: eager PyTorch needs no
     traced select, the network simply runs on the flipped inputs (every one
     of them: rgb and input_depth alike) and its inverse depths are flipped
-    back. No generator, no flip.
+    back. No generator, no flip. On a ``band`` the network runs on the
+    band's rows (the flip is along W, within them).
     """
     inputs = {k: batch[k] for k in model.input_keys if k != "intrinsics" and k in batch}
+    if band is not None:
+        inputs = {k: band.take(v) for k, v in inputs.items()}
     do_flip = False
     if train and model.flip_lr_prob > 0.0 and generator is not None:
         do_flip = torch.rand((), generator=generator).item() < model.flip_lr_prob
     if do_flip:
         inputs = {k: flip_lr(v) for k, v in inputs.items()}
     rgb = inputs.pop("rgb")
-    with record_function("depth_net"):
+    with record_function("depth_net"), spatial.use(band):
         out = _normalize_depth_output(model.depth_net(rgb, **inputs))
     if do_flip:
         for key in ("inv_depths", "inv_depths_rgbd"):
@@ -138,7 +151,8 @@ def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool) ->
 
 
 def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
-                  generator: Optional[torch.Generator] = None) -> Dict:
+                  generator: Optional[torch.Generator] = None,
+                  band: Optional[spatial.Band] = None) -> Dict:
     """Run the depth (+ pose) networks on a batch.
 
     batch keys (NHWC): 'rgb' [B,H,W,3]; optional 'input_depth' [B,H,W,1]
@@ -148,10 +162,11 @@ def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
     and 'poses' (list of [B,4,4] target->context transforms, or None). ``train``
     sets the modules' mode: in training, BatchNorm moves its running
     statistics. ``generator`` draws the training flip (see
-    ``_depth_with_flip``).
+    ``_depth_with_flip``). On a ``band`` the inverse depths are the band's
+    rows (see the module docstring).
     """
     model.train(train)
-    out = _depth_with_flip(model, batch, generator, train)
+    out = _depth_with_flip(model, batch, generator, train, band)
     out["poses"] = None
     if "rgb_context" in batch and model.pose_net is not None:
         with record_function("pose_net"):
@@ -183,9 +198,19 @@ def scales_used(model: SfmModelDef, num_scales: Optional[int] = None) -> int:
     return used
 
 
+def check_band(model: SfmModelDef, height: int, band: spatial.Band) -> None:
+    """Refuse what cannot run on ``band``: a kind other than
+    ``SelfSupModel``, a depth network without a ``space_stride``, or an
+    image height that does not split into bands of a multiple of it."""
+    if model.kind != "SelfSupModel":
+        raise ValueError(f"{model.kind} does not run on a space axis: SelfSupModel does")
+    spatial.check_rows(height, band.count, spatial.network_stride(model.depth_net))
+
+
 def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
                num_scales: Optional[int] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               band: Optional[spatial.Band] = None):
     """Training loss for the model's kind: (loss, (metrics, output)).
 
     ``progress`` is the Python float fraction of training done; the NRS
@@ -193,11 +218,14 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     host. ``num_scales`` overrides the photometric scale count (the trainer
     resolves the progressive schedule, ``losses/progressive.py``). The
     kinds without a loss (``SfmModel``, ``GenericSfmModel``) return a 0
-    that needs no gradient.
+    that needs no gradient. On a ``band`` (``check_band``) the loss and the
+    metrics are the band's shares.
     """
     if isinstance(progress, torch.Tensor):
         raise TypeError("progress must be a Python float")
-    out = model_forward(model, batch, train=True, generator=generator)
+    if band is not None:
+        check_band(model, batch["rgb"].shape[1], band)
+    out = model_forward(model, batch, train=True, generator=generator, band=band)
     image = batch.get("rgb_original", batch["rgb"])
     context = batch.get("rgb_context_original", batch.get("rgb_context"))
     if model.kind == "GenericSelfSupModel":
@@ -222,7 +250,7 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
         with record_function("photometric_loss"):
             self_loss, self_metrics = multiview_photometric_loss(
                 image, context, out["inv_depths"], batch["intrinsics"], out["poses"],
-                photo_cfg)
+                photo_cfg, band=band)
         metrics.update(self_metrics)
         loss = loss + ((1.0 - w) * self_loss if supervised else self_loss)
 

@@ -31,6 +31,9 @@ class DepthResNet(nn.Module):
     """rgb [B, H, W, 3] -> 4 inverse depths [B, Hs, Ws, 1], finest first
     (NHWC at the boundary)."""
 
+    # the stem's stride 4 and three strided stages': a band keeps a row at 1/32
+    space_stride = 32
+
     def __init__(self, version: str = "18", min_depth: float = 0.1, max_depth: float = 100.0):
         super().__init__()
         self.min_depth, self.max_depth = min_depth, max_depth

@@ -11,6 +11,10 @@ caller's generator.
 each layer casts its input and its weights to ``dtype`` where it uses them.
 ``None`` computes in the dtype that the input and the float32 parameters
 promote to, as flax does: a bfloat16 input meets float32 weights in float32.
+
+On a band of rows (``parallel/spatial.use``), ``Conv2d`` takes the rows its
+kernel reads across the band's edges from the neighbouring bands and
+``FastGroupNorm`` sums its statistics over the space group.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from packnet_sfm_tpu_torch.parallel import spatial
 
 
 class Conv2d(nn.Conv2d):
@@ -33,6 +39,9 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.padding[0] and spatial.current() is not None:
+            return spatial.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.groups)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -47,7 +56,9 @@ class FastGroupNorm(nn.Module):
     shift only guards its one-pass formula against cancellation, in float32
     compute; PyTorch's kernel needs none on a contiguous input, so the CPU
     gets a contiguous one (its channels-last kernel sums E[x^2] - E[x]^2 in
-    one pass). Parameters: ``weight`` (flax ``scale``) and ``bias``.
+    one pass). Parameters: ``weight`` (flax ``scale``) and ``bias``. On a
+    band the statistics are those of the whole image, summed over the space
+    group (``parallel/spatial.group_norm``).
     """
 
     def __init__(self, channels: int, num_groups: int = 16, epsilon: float = 1e-5,
@@ -63,6 +74,9 @@ class FastGroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out_dtype = self.dtype or x.dtype
+        if spatial.current() is not None:
+            return spatial.group_norm(x, self.num_groups, self.weight, self.bias,
+                                      self.epsilon).to(out_dtype)
         if x.device.type == "cpu":
             x = x.contiguous()
         out = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.epsilon)

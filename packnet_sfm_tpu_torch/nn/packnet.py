@@ -15,10 +15,17 @@ maps weights by name. ``remat=True`` recomputes the pack, unpack, full
 Conv2dBlock and head sub-blocks in the backward with
 ``torch.utils.checkpoint``. ``dtype`` is the compute dtype of every layer
 (``nn/layers.py``); the inverse depths come out in float32 whatever it is.
+
+On a band of rows (``parallel/spatial.py``) the pack convolutions take
+the two-step path (``ops/fold_conv.fused_pack_conv``); packing, unpacking
+and the nearest upsample are local to a band whose row start is even at
+every level, which a height divisible by the band count times
+``space_stride`` gives.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +41,7 @@ from packnet_sfm_tpu_torch.nn.layers import (
 )
 from packnet_sfm_tpu_torch.ops.fold_conv import channel_conv3d, fused_pack_conv
 from packnet_sfm_tpu_torch.ops.image import interpolate_image
+from packnet_sfm_tpu_torch.parallel import spatial
 
 
 class ChannelConv3d(nn.Module):
@@ -72,6 +80,10 @@ class PackLayerConv3d(nn.Module):
         self.Conv2dBlock_0 = Conv2dBlock(features * r * r * d, features, kernel_size, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        band = spatial.current()
+        if band is not None and band.start(x.shape[2]) % self.r:
+            raise ValueError(f"packing by {self.r} a band that starts at row "
+                             f"{band.start(x.shape[2])}")
         x = F.pixel_unshuffle(x, self.r)                      # [B, C*r*r, H/r, W/r]
         block = self.Conv2dBlock_0
         if not self.fuse:
@@ -112,6 +124,8 @@ class PackNetBase(nn.Module):
     channels: Tuple[int, int, int, int, int] = (64, 64, 128, 256, 512)
     num_blocks: Tuple[int, int, int, int] = (2, 2, 3, 3)
     num_3d_feat: int = 8
+    # five packs by 2: a height divisible by bands x 32 leaves every band a row
+    space_stride: int = 32
 
     def __init__(self, version: str = "A", dropout: Optional[float] = None,
                  out_channels: int = 1, remat: bool = False, fuse: bool = True,
@@ -179,10 +193,14 @@ class PackNetBase(nn.Module):
         init_conv_weights(self, gen)
 
     def _run(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """Submodule ``name`` on x; recomputed in the backward under remat."""
+        """Submodule ``name`` on x; recomputed in the backward under remat,
+        on the band in effect now (the recomputation runs in the backward,
+        outside it)."""
         module = getattr(self, name)
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(module, x, use_reentrant=False)
+            band = spatial.current()
+            return checkpoint(module, x, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), spatial.use(band)))
         return module(x)
 
     def forward(self, rgb: torch.Tensor) -> list:

@@ -5,6 +5,12 @@ Modules take and return NCHW tensors; the networks that use them
 boundary. Submodule names follow the flax module tree so
 ``utils/convert.from_jax`` maps weights by name. ResNet-18/34 are built of
 ``BasicBlock``, 50/101/152 of ``Bottleneck`` (expansion 4).
+
+On a band of rows (``parallel/spatial.py``; DepthResNet's encoder and
+decoder) the padded convolutions (``nn/layers.Conv2d``), the stem's max pool
+and the decoder's reflection pads take their rows across the band's edges
+from the neighbouring bands; BatchNorm's statistics are the global batch's
+already, every band being as large as the others.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from packnet_sfm_tpu_torch.nn.layers import Conv2d
+from packnet_sfm_tpu_torch.parallel import spatial
 from packnet_sfm_tpu_torch.parallel.mesh import batch_group, global_mean_var
 
 
@@ -83,9 +91,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, features: int, stride: int = 1, downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, features, 3, stride=stride, padding=1, bias=False)
+        self.conv1 = Conv2d(cin, features, 3, stride=stride, padding=1, bias=False)
         self.bn1 = BatchNorm(features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, padding=1, bias=False)
         self.bn2 = BatchNorm(features)
         if downsample:
             self.downsample_conv = nn.Conv2d(cin, features, 1, stride=stride, bias=False)
@@ -110,7 +118,7 @@ class Bottleneck(nn.Module):
         out = features * self.expansion
         self.conv1 = nn.Conv2d(cin, features, 1, bias=False)
         self.bn1 = BatchNorm(features)
-        self.conv2 = nn.Conv2d(features, features, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = Conv2d(features, features, 3, stride=stride, padding=1, bias=False)
         self.bn2 = BatchNorm(features)
         self.conv3 = nn.Conv2d(features, out, 1, bias=False)
         self.bn3 = BatchNorm(out)
@@ -156,7 +164,7 @@ class ResNetEncoder(nn.Module):
         block, self.layers = RESNET_CONFIGS[num_layers]
         exp = block.expansion
         self.num_ch_enc = (64, 64 * exp, 128 * exp, 256 * exp, 512 * exp)
-        self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3 * num_input_images, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         cin = 64
         for li, width in enumerate((64, 128, 256, 512)):
@@ -178,7 +186,10 @@ class ResNetEncoder(nn.Module):
         # in bfloat16 first; the port upcasts it first).
         x = (x.float() - 0.45) / 0.225
         f0 = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(f0, 3, stride=2, padding=1)
+        if spatial.current() is None:
+            x = F.max_pool2d(f0, 3, stride=2, padding=1)
+        else:
+            x = spatial.max_pool3s2(f0)
         feats = [f0]
         for li, n in enumerate(self.layers):
             for bi in range(n):
@@ -190,8 +201,13 @@ class ResNetEncoder(nn.Module):
 def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     """Pad H and W of an NCHW tensor by 1 with reflection, as
     ``jnp.pad(mode="reflect")`` does: an axis of one pixel repeats it
-    (``F.pad``'s reflection refuses an axis no longer than the pad)."""
+    (``F.pad``'s reflection refuses an axis no longer than the pad). On a
+    band, the rows come from the neighbouring bands, and the reflection
+    from the whole image's top and bottom."""
     h, w = x.shape[-2:]
+    if spatial.current() is not None:
+        x = spatial.reflect_pad_rows(x)
+        return F.pad(x, (1, 1, 0, 0), mode="reflect" if w > 1 else "replicate")
     if h > 1 and w > 1:
         return F.pad(x, (1, 1, 1, 1), mode="reflect")
     x = F.pad(x, (1, 1, 0, 0), mode="reflect" if w > 1 else "replicate")

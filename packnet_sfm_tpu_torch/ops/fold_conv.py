@@ -26,12 +26,21 @@ views.
 float32: the merged and border kernels are built from them in float32 and
 cast once where a convolution uses them, the convolutions run in ``dtype``
 and the border corrections are added in it, as in the JAX package.
+
+On a band of rows (``parallel/spatial.use``) the two-step path takes the
+rows its convolutions read across the band's edges from the neighbouring
+bands. The fused path's border corrections belong to the whole image's
+top and bottom rows, which a band does not have, so ``fused_pack_conv``
+takes the two-step path on a band whatever its mode (as the JAX package's
+``engine/train._resolve_pack_mode`` does on a space axis).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from packnet_sfm_tpu_torch.parallel import spatial
 
 # mode="auto" takes the two-step path below this many output positions
 # (B*H*W), where the per-call construction of the merged kernel does not pay
@@ -59,8 +68,11 @@ def channel_conv3d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     b, h, w, cp = x.shape
     d = kernel.shape[0]
     dt = dtype or x.dtype
-    y = F.conv3d(_nchw(x).unsqueeze(1).to(dt), kernel.to(dt), bias.to(dt),
-                 padding=1)                                          # [B, d, Cp, H, W]
+    x5 = _nchw(x).unsqueeze(1).to(dt)                                # [B, 1, Cp, H, W]
+    padding = 1
+    if spatial.current() is not None:       # the rows above and below the band
+        x5, padding = spatial.halo(x5, 1, 1, dim=3), (1, 0, 1)
+    y = F.conv3d(x5, kernel.to(dt), bias.to(dt), padding=padding)   # [B, d, Cp, H, W]
     return _nhwc(y.reshape(b, d * cp, h, w))
 
 
@@ -69,8 +81,9 @@ def conv2d_same(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     """Raw 2D conv with zero 'same' padding: x [B, H, W, Cin], kernel
     [Cout, Cin, k, k] (no norm, no activation)."""
     dt = dtype or x.dtype
-    return _nhwc(F.conv2d(_nchw(x).to(dt), kernel.to(dt), bias.to(dt),
-                          padding=kernel.shape[-1] // 2))
+    conv = F.conv2d if spatial.current() is None else spatial.conv2d
+    return _nhwc(conv(_nchw(x).to(dt), kernel.to(dt), bias.to(dt),
+                      padding=kernel.shape[-1] // 2))
 
 
 def pack_conv_two_step(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
@@ -271,14 +284,15 @@ def fused_pack_conv(x: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
 
     mode: 'auto' picks fused or two-step by ``_FUSE_MIN_POSITIONS``; 'fused'
     forces the merged-kernel path; 'two_step' the two-step path. An image
-    too small for disjoint border regions always takes the two-step path.
+    too small for disjoint border regions, and a band of rows (whose edges
+    are not the image's), always take the two-step path.
     """
     if mode not in ("auto", "fused", "two_step"):
         raise ValueError(f"unknown pack conv mode {mode!r}")
     b, h, w, cp = x.shape
     cout, _, k2, _ = w2.shape
     m = k2 // 2
-    if h < 2 * m + 2 or w < 2 * m + 2:
+    if h < 2 * m + 2 or w < 2 * m + 2 or spatial.current() is not None:
         return pack_conv_two_step(x, w3, b3, w2, b2, dtype)
     if mode == "two_step" or (mode == "auto" and b * h * w < _FUSE_MIN_POSITIONS):
         return pack_conv_two_step(x, w3, b3, w2, b2, dtype)

@@ -6,9 +6,13 @@ import torch
 
 
 def image_grid(h: int, w: int, dtype=torch.float32, normalized: bool = False, *,
-               device) -> torch.Tensor:
-    """Homogeneous pixel grid [H, W, 3] with entries (u, v, 1), unbatched."""
-    ys = torch.arange(h, dtype=dtype, device=device)
+               device, row0: int = 0) -> torch.Tensor:
+    """Homogeneous pixel grid [H, W, 3] with entries (u, v, 1), unbatched;
+    ``row0`` is the first row's v (a band of rows of a larger image;
+    not with ``normalized``)."""
+    if row0 and normalized:
+        raise ValueError("a normalized grid of a band of rows")
+    ys = torch.arange(row0, row0 + h, dtype=dtype, device=device)
     xs = torch.arange(w, dtype=dtype, device=device)
     if normalized:
         ys = ys / (h - 1)

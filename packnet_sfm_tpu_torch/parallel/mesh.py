@@ -8,10 +8,17 @@ shard) and its own replica of the model; ``engine/train.make_train_step``
 averages the gradients across ranks with ``DistributedDataParallel``, and
 the statistics that JAX takes over the global batch (BatchNorm's mean and
 variance, the photometric clip's mean and std) are summed across ranks
-with ``all_reduce_sum``, through which gradients flow. So ``make_mesh``,
-``shard_batch`` and ``host_local_rows`` have no counterpart: the rows
-already are where they are computed. The data x space mesh
-(``make_mesh_2d``) is not ported (ROADMAP.md §1 item 5b).
+with ``all_reduce_sum``, through which gradients flow. So ``make_mesh`` and
+``shard_batch`` have no counterpart: the rows already are where they are
+computed.
+
+The (data x space) grid, ``make_mesh_2d``: rank r is data rank r // S and
+space rank r % S of S, as the JAX package lays its devices out
+(``reshape(n // S, S)``). The ranks of a space group hold the same samples
+(their data rank's) and each runs the depth network on one band of their
+rows (``parallel/spatial.py``); ``engine/train.make_train_step`` and
+``make_eval_step`` take the grid, and ``gather_rows`` (the counterpart of
+``host_local_rows``) puts a band-sharded output back together.
 
 Host values (flags, metric rows, strings) travel over a gloo group beside
 the NCCL one, since NCCL takes only device tensors. Without a process
@@ -22,12 +29,15 @@ collective here is the identity, as in the JAX package without
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from packnet_sfm_tpu_torch.parallel.spatial import Band
 
 _groups: dict = {}          # 'host': the gloo group for host values, once initialized
 
@@ -174,3 +184,60 @@ def barrier() -> None:
     """Wait until every process gets here."""
     if process_count() > 1:
         dist.barrier(group=_host_group())
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A (data x space) grid of the ranks: this rank's indices, the group of
+    its data rank (``space_group``: the ranks that share its samples) and
+    ``grad_group``, all ranks, over which the gradients are averaged (a
+    group of its own, so that the gradient buckets never interleave with
+    the exchanges of the space group or the statistics of the default
+    one)."""
+
+    data_count: int
+    space_count: int
+    data_index: int
+    space_index: int
+    space_group: Any = None
+    grad_group: Any = None
+
+    def band(self) -> Optional[Band]:
+        """This rank's band (``parallel/spatial.Band``), or None without a
+        space axis."""
+        if self.space_count <= 1:
+            return None
+        return Band(self.space_group, self.space_index, self.space_count)
+
+
+def make_mesh_2d(spatial_shards: int) -> Mesh2D:
+    """The (data, space) grid over the whole process group:
+    ``spatial_shards`` ranks a space group, world // spatial_shards data
+    ranks. Every rank must call it, in the same order as its other
+    collectives. Raises ``ValueError`` where the world size is not
+    divisible by ``spatial_shards``, as the JAX package does."""
+    n = process_count()
+    if spatial_shards < 1 or n % spatial_shards:
+        raise ValueError(f"{n} devices not divisible by {spatial_shards}")
+    data_count, rank = n // spatial_shards, process_index()
+    grid = dict(data_count=data_count, space_count=spatial_shards,
+                data_index=rank // spatial_shards, space_index=rank % spatial_shards)
+    if n == 1:
+        return Mesh2D(**grid)
+    # dist.new_group is collective: every rank makes every group, in one order
+    spaces = [dist.new_group(list(range(d * spatial_shards, (d + 1) * spatial_shards)))
+              for d in range(data_count)]
+    grad = dist.new_group(list(range(n)))
+    return Mesh2D(**grid, space_group=spaces[grid["data_index"]], grad_group=grad)
+
+
+def gather_rows(x: torch.Tensor, grid: Optional[Mesh2D], dim: int = 1) -> torch.Tensor:
+    """The whole of a band-sharded tensor (this rank's band of rows on
+    ``dim``), gathered from the bands of its space group in row order; the
+    identity without a space axis (the counterpart of the JAX package's
+    ``host_local_rows``: this data rank's samples, whole)."""
+    if grid is None or grid.space_count <= 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(grid.space_count)]
+    dist.all_gather(parts, x.contiguous(), group=grid.space_group)
+    return torch.cat(parts, dim)

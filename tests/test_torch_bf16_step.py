@@ -44,6 +44,8 @@ port's bfloat16 loss is held within 2e-2 of its own float32 one.
 The loss comes back in float32 and the parameters stay float32.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -197,6 +199,18 @@ def _run_both(kind):
     jmodel = jax_factory.setup_model(jcfg.model, dtype=jnp.bfloat16)
     variables = init_model(jmodel, jax.random.PRNGKey(0), batches[0])
     state0 = from_jax(_np_tree(variables["params"]), _np_tree(variables.get("batch_stats", {})))
+    # the port's steps run in a thread while XLA compiles JAX's (both
+    # release the interpreter while they compute)
+    with ThreadPoolExecutor(1) as pool:
+        port = pool.submit(lambda: (_port_steps(kind, state0), _port_gradient(kind, state0)))
+        jax_side = _jax_steps(kind, jmodel, variables, batches, jcfg, jax_optimizer, progress)
+        (t_losses, t_params, _), t_grads = port.result()
+    return dict(state0=state0, t_grads=t_grads, t_losses=t_losses, t_params=t_params,
+                **jax_side)
+
+
+def _jax_steps(kind, jmodel, variables, batches, jcfg, jax_optimizer, progress):
+    """JAX's gradient on the first batch and its N_STEPS bfloat16 steps."""
 
     def loss_fn(params, batch):
         v = dict(variables, params=params)
@@ -220,10 +234,7 @@ def _run_both(kind):
         j_losses.append(cum - prev)
         prev = cum
         j_params.append(from_jax(_np_tree(state.params)))
-    t_losses, t_params, _ = _port_steps(kind, state0)
-    return dict(state0=state0, j_losses=np.array(j_losses), j_params=j_params,
-                j_grads=j_grads, t_grads=_port_gradient(kind, state0),
-                t_losses=t_losses, t_params=t_params)
+    return dict(j_losses=np.array(j_losses), j_params=j_params, j_grads=j_grads)
 
 
 def _keys(r):

@@ -198,8 +198,8 @@ def test_flip_mirrors_input_depth_like_jax():
     and both inverse-depth lists come back flipped, as in JAX."""
     batch = _batch(2, with_input_depth=True)
     jmodel, variables, model = _both("SemiSupCompletionModel", batch, flip=1.0)
-    jout, _ = jsfm.model_forward(jmodel, variables, batch, rng=jax.random.PRNGKey(3),
-                                 train=True)
+    jout, _ = jax.jit(partial(jsfm.model_forward, jmodel, train=True))(
+        variables, batch, rng=jax.random.PRNGKey(3))
     tbatch = prepare_train_batch(batch, "cpu")
     out = tsfm.model_forward(model, tbatch, train=True, generator=torch.Generator())
     for key in ("inv_depths", "inv_depths_rgbd"):
@@ -255,7 +255,7 @@ def test_dropout_builds_evaluates_and_refuses_training_like_jax():
         jsfm.model_forward(jmodel, variables, batch, train=True)
     model = setup_model(ConfigNode.from_dict(jcfg.model.to_dict()), device="cpu")
     model.load_state_dict(from_jax(_np(variables["params"])), strict=True)
-    jout, _ = jsfm.model_forward(jmodel, variables, batch, train=False)
+    jout, _ = jax.jit(partial(jsfm.model_forward, jmodel, train=False))(variables, batch)
     out = tsfm.model_forward(model, prepare_train_batch(batch, "cpu"), train=False)
     for o, j in zip(out["inv_depths"], jout["inv_depths"]):
         np.testing.assert_allclose(o.detach().numpy(), np.asarray(j), rtol=NET_RTOL,

@@ -86,7 +86,8 @@ def test_importing_the_port_pulls_in_no_jax():
                    "nn.packnet_san", "losses.supervised", "losses.velocity", "geometry.se3",
                    "egomotion", "egomotion.alignment", "egomotion.posegraph",
                    "egomotion.evaluation", "egomotion.odometry", "cli.odometry", "cli.export",
-                   "cli.convert_checkpoint", "utils.torch_import"):
+                   "cli.convert_checkpoint", "utils.torch_import", "parallel.spatial",
+                   "tools.hr_2dmesh"):
         assert f"packnet_sfm_tpu_torch.{module}" in MODULES
 
 

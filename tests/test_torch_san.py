@@ -59,6 +59,7 @@ import pathlib
 import signal
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import jax
@@ -361,6 +362,19 @@ def _run_lockstep(variables, state0):
     same weights on the same batches."""
     jcfg, tcfg, jmodel, model = _models(state0)
     batches = [_batch(10 + i) for i in range(N_STEPS)]
+    # the port's steps run in a thread while XLA compiles JAX's (both
+    # release the interpreter while they compute)
+    with ThreadPoolExecutor(1) as pool:
+        port = pool.submit(_port_lockstep, model, batches)
+        j_losses, j_states, j_terms = _jax_lockstep(jmodel, variables, batches)
+        t_losses, t_states, tacc = port.result()
+    t_terms = {k: float(tacc[k][0]) for k in j_terms}
+    return dict(j_losses=np.array(j_losses), t_losses=np.array(t_losses), j_terms=j_terms,
+                t_terms=t_terms, j_states=j_states, t_states=t_states,
+                state0={"depth_net." + k: v for k, v in state0.items()})
+
+
+def _jax_lockstep(jmodel, variables, batches):
     tx = optax.sgd(LR)
     mesh = make_mesh(num_devices=1)
     # copies: the JAX step donates its state's buffers
@@ -379,7 +393,10 @@ def _run_lockstep(variables, state0):
         j_states.append(from_jax(_np(jstate.params), _np(jstate.batch_stats)))
     j_terms = {k: float(acc[k][0]) for k in ("supervised_loss", "supervised_loss_rgbd",
                                              "depth_loss")}
+    return j_losses, j_states, j_terms
 
+
+def _port_lockstep(model, batches):
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=LR))
     tacc = zero_metrics("cpu")
     t_losses, t_states, prev = [], [], 0.0
@@ -389,10 +406,7 @@ def _run_lockstep(variables, state0):
         t_losses.append(cum - prev)
         prev = cum
         t_states.append({k: v.detach().clone() for k, v in model.state_dict().items()})
-    t_terms = {k: float(tacc[k][0]) for k in j_terms}
-    return dict(j_losses=np.array(j_losses), t_losses=np.array(t_losses), j_terms=j_terms,
-                t_terms=t_terms, j_states=j_states, t_states=t_states,
-                state0={"depth_net." + k: v for k, v in state0.items()})
+    return t_losses, t_states, tacc
 
 
 def _update_cosines(runs):
