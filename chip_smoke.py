@@ -99,11 +99,12 @@ Phases, each of which fails the run:
    ranks of a job are ``chip_smoke.py --worker <job.json>``): world 1 over
    NCCL through ``cli.train --distributed``, phase 7's train_kitti.yaml run
    again, whose loss and validation table must equal phase 7's (run
-   without it); the train_kitti.yaml step at batch 4 timed plain, with DDP
-   at world 1 (``parallel/scaling.py``, which also gives images/s and
-   efficiency at the world sizes the machine has cards for), and plain
-   again, each in a fresh process. Two ranks: NCCL with a card a rank where there are two cards,
-   else gloo with both on card 0, after NCCL's refusal of that is shown
+   without it), beside it NCCL's refusal of two ranks on one card; the
+   train_kitti.yaml step at batch 4 timed plain and with DDP at world 1
+   (``parallel/scaling.py``, which also gives images/s and efficiency at the
+   world sizes the machine has cards for), each in a fresh process. Two
+   ranks: NCCL with a card a rank where there are two cards, else gloo with
+   both on card 0, after NCCL's refusal of that is shown
    and its message kept. On two ranks: the first train_kitti.yaml step as
    written (4 rows a rank) against one rank on the 8 rows (the ranks'
    mean loss, the gradient's cosine; the update's cosine against one rank
@@ -156,6 +157,22 @@ Phases, each of which fails the run:
    launches of warp_fwd and warp_bwd a step on each rank, at band
    coordinates against whole images (phase 2 holds the four warp kernels
    on that case).
+12. The rest of the grid's kinds (``models/sfm.check_band``): (a) the band
+   forms of K6f/K6b (softargmax_fwd_band/softargmax_bwd_band) at the
+   omnicam projection grid, [1,3,192,192], p = 20, on the bands at rows 0
+   and 96 of 2 (each with its ray slab), against their plain band versions,
+   ex, ey and d direction against the same rows of the whole-image kernel,
+   the bands' d rays summed as the halo's backward sums them against the
+   whole d rays; their times and bounds; then tools/hr_2dmesh.py's recipes
+   for SPACE_KIND_STEPS steps, in one process (the two-step pack conv) and
+   on two space ranks over gloo on card 0: (b) ``hr_velsup`` (VelSupModel on
+   the HR networks at 384x1280) against the one process, its loss, velocity
+   term and first update; (c) ``omnicam`` (NRS at 384x384, float32) against
+   the one process, the first loss and the first gradient's cosine above
+   the port's own floor (one process from weights perturbed by 1e-7,
+   measured here), 2 launches of each band form a step on each rank; then
+   in bfloat16, as the config is written; (d) ``semisup`` (PackNet01 as
+   SemiSupModel with sparse-berhu at 192x640) against the one process.
 
 Phases 3 and 4 train in bfloat16 as the configs say, and in float32 beside
 it; phase 6 in float32 (the overfit recipes' dtype). TF32 stays off for
@@ -166,8 +183,8 @@ one line {"steps": {...}} holds phases 3 and 4's steps by dtype, one line
 {"eval": {...}} phase 5's numbers, one line {"train": {...}} phase 6's,
 one line {"data": {...}} phase 7's, one line {"distributed": {...}}
 phase 8's (with "backend" and "ranks_per_card"), one line {"models":
-{...}} phase 9's, one line {"odometry": {...}} phase 10's and one line
-{"space": {...}} phase 11's.
+{...}} phase 9's, one line {"odometry": {...}} phase 10's, one line
+{"space": {...}} phase 11's and one line {"space_kinds": {...}} phase 12's.
 The line before the last lists each kernel with its dtype, its launches on
 its train path's steps (the bfloat16 steps; the float32-image warp's on the
 float32 flagship steps), error against the plain version, time, plain
@@ -175,8 +192,9 @@ time, bound and, where one PyTorch call computes the same function, that
 call's time, and each kernel's launches on phase 7's runs
 ("data_launches"), by rank on phase 8's ("distributed_launches"), by
 run on phase 9's ("models_launches"), on phase 10's
-("odometry_launches") and by run and rank on phase 11's
-("space_launches"); warp_jvp's launches are the --refine-direct run's. A
+("odometry_launches"), by run and rank on phase 11's ("space_launches")
+and on phase 12's ("space_kinds_launches"); warp_jvp's launches are the
+--refine-direct run's, the band forms' those of phase 12's omnicam grid. A
 bound is the largest of the bytes' time, the operations' time and the time
 of an empty kernel's launch, measured here.
 """
@@ -652,7 +670,7 @@ def run_steps(step, acc, batches, progress):
         cum = acc["loss"][0].item()
         losses.append(cum - prev)
         prev = cum
-    counts = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     log("losses: " + ", ".join(f"{x:.6f}" for x in losses))
     log("step ms: " + ", ".join(f"{x:.2f}" for x in step_ms)
@@ -1269,7 +1287,7 @@ def eval_phase(device, kitti):
 
     result["half"] = eval_half(device, cfg, model, metrics_cfg, ckpt, result["table"], rgb)
 
-    result["launches"] = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
+    result["launches"] = read_counts()
     log(f"launches during eval and infer: {result['launches']}")
     if any(result["launches"].values()):
         raise AssertionError("the eval path launched a kernel of the port")
@@ -1451,7 +1469,7 @@ def train_phase(device):
     warp.reset_launch_counts()
     history = trainer.fit()
     torch.cuda.synchronize()
-    counts = {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
+    counts = read_counts()
     steps = trainer.step
     want = {k: 0 for k in counts}
     want.update(warp_fwd=TRAIN_SCALES * steps, warp_bwd=TRAIN_SCALES * steps)
@@ -1766,7 +1784,8 @@ def read_counts():
     from packnet_sfm_tpu_torch.ops import softargmax as sa
     from packnet_sfm_tpu_torch.ops import warp
 
-    return {**sa.launch_counts, **warp.launch_counts, **warp.bf16_launch_counts}
+    return {**sa.launch_counts, **sa.band_launch_counts, **warp.launch_counts,
+            **warp.bf16_launch_counts}
 
 
 def reset_counts():
@@ -2034,17 +2053,22 @@ def finish(proc, label, timeout=DIST_TIMEOUT, check=True):
     return proc.returncode, out
 
 
-def dist_job(nproc, label, **job):
+def dist_job(nproc, label, wait=True, **job):
     """``chip_smoke.py --worker`` on ``nproc`` ranks for one job; returns
-    each rank's result."""
+    each rank's result, or, without ``wait``, a function that waits for
+    them (the job runs meanwhile)."""
     root = ROOT / "build" / "chip_smoke_dist"
     path = root / f"{label}.json"
     path.write_text(json.dumps(dict(job, out=str(root), label=label)))
     t0 = time.perf_counter()
-    finish(torchrun(nproc, [ROOT / "chip_smoke.py", "--worker", path]), label)
-    results = [json.loads((root / f"{label}_rank{r}.json").read_text()) for r in range(nproc)]
-    log(f"{label}: {nproc} ranks in {time.perf_counter() - t0:.1f} s")
-    return results
+    proc = torchrun(nproc, [ROOT / "chip_smoke.py", "--worker", path])
+
+    def results():
+        finish(proc, label)
+        log(f"{label}: {nproc} ranks in {time.perf_counter() - t0:.1f} s")
+        return [json.loads((root / f"{label}_rank{r}.json").read_text()) for r in range(nproc)]
+
+    return results() if wait else results
 
 
 def rank_logs(log_dir):
@@ -2165,20 +2189,27 @@ def dist_worker(job_path):
     rank = int(os.environ.get("RANK", "0"))
     (out / f"{label}_rank{rank}.pid").write_text(str(os.getpid()))
     res = {"rank": rank}
-    if kind == "hr_one_process":
-        # phase 11's one-process runs, one after the other, each from the
-        # same weights and batch (tools/hr_2dmesh.py's run_rank)
-        import torch
-
+    if kind == "hr_runs":
+        # phases 11 and 12's runs of tools/hr_2dmesh.py's recipes, one after
+        # the other in this process (in one process group where a launcher
+        # made one), each from the same weights and batch
         from packnet_sfm_tpu_torch.tools import hr_2dmesh
 
-        for label, mode in job["runs"]:
+        grouped = "RANK" in os.environ
+        device = (mesh.init_distributed(job["backend"], job["device"]) if grouped
+                  else torch.device(job["device"]))
+        for label, argv, dtype, perturb in job["runs"]:
             path = out / f"{label}.json"
-            run = hr_2dmesh.run_rank(hr_2dmesh.parse_args(
-                job["args"] + ["--pack-mode", mode, "--out", str(path)]))
-            path.write_text(json.dumps(run))
+            args = hr_2dmesh.parse_args(argv + ["--out", str(path)])
+            run = hr_2dmesh.run_steps(args, device,
+                                      mesh.make_mesh_2d(args.space) if grouped else None,
+                                      torch.bfloat16 if dtype == "bfloat16" else None, perturb)
+            if rank == 0:
+                path.write_text(json.dumps(run))
             gc.collect()
             torch.cuda.empty_cache()
+        if grouped:
+            mesh.shutdown()
         return 0
     if kind == "plain_step":
         # no process group: the step without DDP, in a process of its own
@@ -2324,6 +2355,11 @@ def distributed_phase(device, data):
                         if ranks_per_card > 1 else "one card a rank over NCCL"))
     log(f"phase 8: {cards} card(s): two ranks over {backend}, {ranks_per_card} a card")
 
+    # 3 first: NCCL with two ranks on one card, beside the world-1 run below
+    # (its own launch and port; it fails at its first collective)
+    nccl_refusal = (dist_job(2, "nccl_one_card", wait=False, kind="nccl_one_card")
+                    if ranks_per_card > 1 else None)
+
     # 1. world 1 over NCCL through the CLI: phase 7's train_kitti.yaml run again
     cfg = kitti_train_config(kitti_root)
     try:
@@ -2359,9 +2395,9 @@ def distributed_phase(device, data):
                                 plain_imgs_per_sec=ref["imgs_per_sec"])
 
     # 2. the step plain and with DDP over NCCL at world 1 (parallel/scaling.py),
-    # in turns, each in a fresh process: plain, DDP, plain
+    # each in a fresh process: plain, then DDP
     plain, ddp, scaling = [], [], None
-    for turn in ("plain", "ddp", "plain"):
+    for turn in ("plain", "ddp"):
         if turn == "plain":
             job = root / "plain_step.json"
             job.write_text(json.dumps(dict(kind="plain_step", out=str(root), label="plain_step")))
@@ -2376,15 +2412,15 @@ def distributed_phase(device, data):
     ratio = statistics.mean(ddp) / statistics.mean(plain)
     log(f"train_kitti.yaml step at batch 4, 192x640, bfloat16, {WORLD1_STEPS} steps after 3, "
         f"each in a fresh process: plain {plain[0]:.2f} ms, DDP over NCCL at world 1 "
-        f"{ddp[0]:.2f} ms, plain {plain[1]:.2f} ms (DDP / plain {ratio:.3f}); scaling at the "
+        f"{ddp[0]:.2f} ms (DDP / plain {ratio:.3f}); scaling at the "
         f"world sizes this machine has cards for: {scaling}")
     result["world1_step"] = dict(plain_ms=plain, ddp_ms=ddp, ddp_over_plain=ratio,
                                  steps=WORLD1_STEPS)
     result["scaling"] = scaling
 
-    # 3. NCCL with two ranks on one card
-    if ranks_per_card > 1:
-        refused = dist_job(2, "nccl_one_card", kind="nccl_one_card")
+    # 3. NCCL with two ranks on one card (started with 1)
+    if nccl_refusal is not None:
+        refused = nccl_refusal()
         errors = [r.get("error", "") for r in refused]
         said = " | ".join(e.splitlines()[-1] if e else "" for e in errors)
         log(f"NCCL, two ranks on card 0: refused by {sum(r['refused'] for r in refused)} of 2: "
@@ -2910,17 +2946,10 @@ def odometry_phase(device):
     one = optimize_pose_graph(torch.from_numpy(traj0[:9]).to(device),
                               {k: torch.from_numpy(v).to(device) for k, v in edges9.items()},
                               PoseGraphConfig())
-    ranks = dist_job(2, "posegraph_2rank", kind="posegraph", backend="gloo", device="cuda:0",
-                     graph=str(graph))
-    ranks_diff = max(float(np.abs(np.asarray(r["T"]) - one[0].cpu().numpy()).max())
-                     for r in ranks)
-    log(f"optimize_pose_graph_sharded on two gloo ranks of card 0 ({len(edges9['i'])} edges) "
-        f"against one process: max |T| difference {ranks_diff:.3e} (tolerance "
-        f"{TOL_POSEGRAPH_RANKS:g}); cost {ranks[0]['cost']:.6g} against {float(one[2]):.6g}")
-    if not (ranks_diff <= TOL_POSEGRAPH_RANKS and ranks[0]["T"] == ranks[1]["T"]):
-        failures.append(f"two-rank pose graph {ranks_diff:.3e}")
-    result.update(native_vs_torch_max_abs_diff=native_diff, native_ms=native_s * 1e3,
-                  two_ranks_vs_one_max_abs_diff=ranks_diff)
+    # the two ranks run while the export and the conversion below do
+    posegraph_ranks = dist_job(2, "posegraph_2rank", wait=False, kind="posegraph",
+                               backend="gloo", device="cuda:0", graph=str(graph))
+    result.update(native_vs_torch_max_abs_diff=native_diff, native_ms=native_s * 1e3)
 
     # 4. cli.export, float32 and --half, both run in one process that imports
     # only torch
@@ -2935,14 +2964,45 @@ def odometry_phase(device):
             size = export_checkpoint(str(ckpt), str(path), half=half, device=device)
         result["export"][name] = dict(mb=size / 1e6, seconds=time.perf_counter() - t0)
         args += [str(path), str(out / f"exported_{name}.pt")]
+    # the torch-only process runs while the conversion below does
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, str(out / "rgb.pt"), *args],
-                          capture_output=True, text=True, timeout=600, cwd=str(out))
-    if proc.returncode != 0:
-        raise AssertionError(f"the exported models do not run:\n{proc.stderr[-3000:]}")
-    leaked = json.loads(proc.stdout.strip().splitlines()[-1])
+    loader = subprocess.Popen([sys.executable, "-c", EXPORT_LOADER, str(out / "rgb.pt"), *args],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=str(out))
+
+    # 5. cli.convert_checkpoint on a reference-format .ckpt of the same weights
+    src = out / "reference.ckpt"
+    torch.save({"config": {"model": {"name": "SelfSupModel",
+                                     "depth_net": {"name": "PackNet01", "version": "1A"},
+                                     "pose_net": {"name": "PoseNet"}}},
+                "epoch": 0, "state_dict": reference_state_dict(model)}, src)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        converted = convert(str(src), str(out / "converted"))
+    convert_s = time.perf_counter() - t1
+    meta = json.loads((pathlib.Path(converted) / "meta.json").read_text())
+    back = setup_model(ConfigNode.from_dict(meta["config"]).model, device=device, seed=1)
+    restore_checkpoint(converted, back)
+    equal = bool(torch.equal(make_depth_fn(back)(rgb.to(device)), make_depth_fn(model)(rgb.to(device))))
+    log(f"convert_checkpoint of a reference-format .ckpt ({src.stat().st_size / 1e6:.1f} MB) in "
+        f"{convert_s:.1f} s: the converted model's inverse depth equal to the original's: {equal}")
+    if not equal:
+        failures.append("the converted checkpoint's inverse depth differs")
+    result.update(convert_seconds=convert_s, convert_equal=equal)
+    shutil.rmtree(out / "converted")
+    src.unlink()
+
+    try:
+        stdout, stderr = loader.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        loader.kill()
+        raise AssertionError("the exported models' loader did not finish in 600 s")
+    if loader.returncode != 0:
+        raise AssertionError(f"the exported models do not run:\n{stderr[-3000:]}")
+    leaked = json.loads(stdout.strip().splitlines()[-1])
     log(f"export: both programs loaded and run in a torch-only process in "
-        f"{time.perf_counter() - t0:.1f} s; modules of jax or the port there: {leaked}")
+        f"{time.perf_counter() - t0:.1f} s (the conversion beside it); modules of jax or the "
+        f"port there: {leaked}")
     if leaked:
         failures.append(f"the export's loader imported {leaked}")
     for name, (half, tol) in exports.items():
@@ -2962,27 +3022,15 @@ def odometry_phase(device):
         (out / f"depth_{name}.pt2").unlink()
         del ref_model
 
-    # 5. cli.convert_checkpoint on a reference-format .ckpt of the same weights
-    src = out / "reference.ckpt"
-    torch.save({"config": {"model": {"name": "SelfSupModel",
-                                     "depth_net": {"name": "PackNet01", "version": "1A"},
-                                     "pose_net": {"name": "PoseNet"}}},
-                "epoch": 0, "state_dict": reference_state_dict(model)}, src)
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        converted = convert(str(src), str(out / "converted"))
-    convert_s = time.perf_counter() - t0
-    meta = json.loads((pathlib.Path(converted) / "meta.json").read_text())
-    back = setup_model(ConfigNode.from_dict(meta["config"]).model, device=device, seed=1)
-    restore_checkpoint(converted, back)
-    equal = bool(torch.equal(make_depth_fn(back)(rgb.to(device)), make_depth_fn(model)(rgb.to(device))))
-    log(f"convert_checkpoint of a reference-format .ckpt ({src.stat().st_size / 1e6:.1f} MB) in "
-        f"{convert_s:.1f} s: the converted model's inverse depth equal to the original's: {equal}")
-    if not equal:
-        failures.append("the converted checkpoint's inverse depth differs")
-    result.update(convert_seconds=convert_s, convert_equal=equal)
-    shutil.rmtree(out / "converted")
-    src.unlink()
+    ranks = posegraph_ranks()
+    ranks_diff = max(float(np.abs(np.asarray(r["T"]) - one[0].cpu().numpy()).max())
+                     for r in ranks)
+    log(f"optimize_pose_graph_sharded on two gloo ranks of card 0 ({len(edges9['i'])} edges) "
+        f"against one process: max |T| difference {ranks_diff:.3e} (tolerance "
+        f"{TOL_POSEGRAPH_RANKS:g}); cost {ranks[0]['cost']:.6g} against {float(one[2]):.6g}")
+    if not (ranks_diff <= TOL_POSEGRAPH_RANKS and ranks[0]["T"] == ranks[1]["T"]):
+        failures.append(f"two-rank pose graph {ranks_diff:.3e}")
+    result.update(two_ranks_vs_one_max_abs_diff=ranks_diff)
 
     result["seconds"] = time.perf_counter() - t_phase
     log(f"phase 10 took {result['seconds']:.1f} s")
@@ -3005,7 +3053,7 @@ def odometry_phase(device):
 # processes' update cosine is the figure beside it). 4 launches of warp_fwd
 # and warp_bwd a step on each rank; each rank's peak below the fused
 # process's.
-SPACE_STEPS = 3
+SPACE_STEPS = 2
 SPACE_TIMEOUT = 240
 TOL_SPACE_LOSS = 1e-5
 TOL_SPACE_COS = 0.9999
@@ -3013,24 +3061,34 @@ SPACE_RUNS = (("one_process", 1, "auto"), ("one_process_two_step", 1, "two_step"
               ("space_2", 2, "auto"))
 
 
-def hr_runs(root):
-    """tools/hr_2dmesh.py on card 0: SPACE_RUNS's one-process runs in one
-    process (``--worker``), then the grid's ranks; returns each run's JSON
-    line."""
+def hr_worker(root, label, runs, nproc):
+    """The ``hr_runs`` job of ``runs`` ([label, tools/hr_2dmesh.py's
+    arguments, dtype, perturb seed or None] each) on card 0: in one process
+    (``chip_smoke.py --worker``), or on ``nproc`` gloo ranks in one process
+    group; waits for it."""
     import os
 
-    args = ["--data", "1", "--steps", str(SPACE_STEPS), "--device", "cuda:0"]
-    single = [(label, mode) for label, space, mode in SPACE_RUNS if space == 1]
-    job = root / "hr_one_process.json"
-    job.write_text(json.dumps(dict(kind="hr_one_process", out=str(root), label="hr",
-                                   runs=single, args=args + ["--space", "1"])))
+    job = root / f"{label}.json"
+    job.write_text(json.dumps(dict(kind="hr_runs", out=str(root), label=label, runs=runs,
+                                   backend="gloo", device="cuda:0")))
+    worker = [ROOT / "chip_smoke.py", "--worker", job]
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    finish(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--worker", str(job)],
-                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True),
-           "space_one_process", timeout=SPACE_TIMEOUT)
-    log(f"the one-process runs: {time.perf_counter() - t0:.1f} s with the start")
+    finish(torchrun(nproc, worker) if nproc > 1 else subprocess.Popen(
+        [sys.executable] + [str(a) for a in worker], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True), f"space_{label}",
+        timeout=SPACE_TIMEOUT)
+    log(f"{label}: {time.perf_counter() - t0:.1f} s with the start")
+
+
+def hr_runs(root):
+    """tools/hr_2dmesh.py on card 0: SPACE_RUNS's one-process runs in one
+    process, then the grid's ranks through the tool's own launch; returns
+    each run's JSON line."""
+    args = ["--data", "1", "--steps", str(SPACE_STEPS), "--device", "cuda:0"]
+    hr_worker(root, "hr_one_process",
+              [[label, args + ["--space", "1", "--pack-mode", mode], "float32", None]
+               for label, space, mode in SPACE_RUNS if space == 1], 1)
     for label, space, mode in SPACE_RUNS:
         if space > 1:
             t0 = time.perf_counter()
@@ -3042,7 +3100,7 @@ def hr_runs(root):
     runs = {label: json.loads((root / f"{label}.json").read_text()) for label, _, _ in SPACE_RUNS}
     for label, r in runs.items():
         log(f"{label} (pack mode {r['pack_mode']}): losses {r['losses']}, step "
-            f"{r['step_ms']:.2f} ms (steps 2-{SPACE_STEPS}), peak MiB by rank "
+            f"{r['step_ms']:.2f} ms (steps 2-{SPACE_STEPS} of {SPACE_STEPS}), peak MiB by rank "
             f"{[round(x['peak_mib'], 1) for x in r['ranks']]}, launches by rank "
             f"{[x['launches'] for x in r['ranks']]}, collectives a step "
             f"{r['ranks'][0]['collectives_per_step']}")
@@ -3096,6 +3154,252 @@ def space_phase():
     seconds = time.perf_counter() - t_phase
     log(f"phase 11 took {seconds:.1f} s")
     return dict(runs=runs, agreement=agree, peak_share=peak_share, seconds=seconds)
+
+
+# Phase 12: the rest of the grid's kinds. (a) The band forms of K6f/K6b at
+# the omnicam projection grid (half of 384x384), on the two bands of rows of
+# 96 that phase 12's omnicam grid runs, each with the ray slab its windows
+# read. Against the plain band version: TOL_PX and TOL_GRAD. Against the
+# whole-image kernel: ex, ey and d direction of the band's rows, and the
+# bands' d rays summed into the image's rows (as the halo's backward sums
+# them), within TOL_BAND_WHOLE of the largest value: the band form computes
+# each window with the whole kernel's roundings, and only the d rays' sums
+# over a tile run in another order. A band's bound is half the whole
+# kernel's: 96 x 192 x 41^2 = 31 M window positions.
+BAND_ROWS = 96
+TOL_BAND_WHOLE = 1e-6
+# (b)-(d): tools/hr_2dmesh.py's recipes for SPACE_KIND_STEPS steps, in one
+# process (hr_velsup and semisup with the two-step pack conv that a band
+# takes) and on two space ranks over gloo on card 0, all from the same
+# weights and batch; the grid against the one process by phase 11's bounds
+# (the first loss and each loss term relative, the first update's cosine).
+# omnicam's objective is chaotic at T ~ 1e-4: its first loss relative by
+# TOL_SPACE_LOSS and its first gradient's cosine by TOL_OMNICAM_GRAD_COS,
+# under the port's own floor (one process from weights moved by a relative
+# 1e-7, FLOOR_DRAWS draws, measured in every run: on an H100 at 700 W a
+# first gradient's cosine of 0.9933-0.9961 over 3 draws, and the grid's
+# 0.99474, its first loss 2.5e-6 apart), as tests/test_torch_train_step.py
+# sets its bounds. Then omnicam in bfloat16
+# (the config as written) on the grid: finite losses and its launches.
+SPACE_KIND_STEPS = 2
+FLOOR_DRAWS = 3
+TOL_OMNICAM_GRAD_COS = 0.99
+KIND_ONE_PROCESS = (("hr_velsup", "two_step"), ("omnicam", "auto"), ("semisup", "two_step"))
+KIND_GRID = (("hr_velsup", "float32"), ("omnicam", "float32"), ("omnicam", "bfloat16"),
+             ("semisup", "float32"))
+# launches a step on each rank (one process: the whole-image soft-argmax)
+KIND_LAUNCHES = {
+    "hr_velsup": {"warp_fwd": 4, "warp_bwd": 4},
+    "semisup": {"warp_fwd": 4, "warp_bwd": 4},
+    "omnicam": {"softargmax_fwd": 2, "softargmax_bwd": 2, "warp_fwd": 2, "warp_bwd": 2},
+    "omnicam_grid": {"softargmax_fwd_band": 2, "softargmax_bwd_band": 2, "warp_fwd": 2,
+                     "warp_bwd": 2},
+    "omnicam_grid_bf16": {"softargmax_fwd_band": 2, "softargmax_bwd_band": 2,
+                          "warp_fwd_bf16": 2, "warp_bwd_bf16": 2},
+}
+
+
+def band_kernel_phase(device, path_temperature):
+    """Phase 12 (a); returns the band forms' numbers for the kernels line."""
+    import torch
+
+    from packnet_sfm_tpu_torch.ops import softargmax as sa
+
+    h = w = 192
+    gen = torch.Generator().manual_seed(4)
+    d, r = unit(gen, (1, 3, h, w), device), unit(gen, (1, 3, h, w), device)
+    a, c = (torch.randn((1, h, w), generator=gen).to(device) for _ in range(2))
+    err = {"fwd": 0.0, "bwd": 0.0}
+    whole_err = 0.0
+    cases = []
+    for t in (path_temperature, DENSE_T):
+        ex, ey, m, s = sa.softargmax_fwd_cuda(d, r, t, PATCH)
+        ddir, drays = sa.softargmax_bwd_cuda(d, r, t, PATCH, ex, ey, m, s, a, c)
+        summed = torch.zeros_like(drays)
+        tol = 1e-4 if t < 1e-2 else DENSE_T
+        for row0 in range(0, h, BAND_ROWS):
+            rows = slice(row0, row0 + BAND_ROWS)
+            first, stop = sa.ray_slab(row0, BAND_ROWS, h, PATCH)
+            db, slab = d[:, :, rows].contiguous(), r[:, :, first:stop].contiguous()
+            ab, cb = a[:, rows].contiguous(), c[:, rows].contiguous()
+            band = (row0, h, first)
+            bex, bey, bm, bs = sa.softargmax_fwd_band_cuda(db, slab, t, PATCH, *band)
+            bdir, brays = sa.softargmax_bwd_band_cuda(db, slab, t, PATCH, *band, bex, bey, bm,
+                                                      bs, ab, cb)
+            again = sa.softargmax_bwd_band_cuda(db, slab, t, PATCH, *band, bex, bey, bm, bs,
+                                                ab, cb)
+            if not (torch.equal(bdir, again[0]) and torch.equal(brays, again[1])):
+                raise AssertionError("K6b's band form returned other bits on a second call")
+            summed[:, :, first:stop] += brays
+            # against the plain band version
+            dp, rp = db.clone().requires_grad_(), slab.clone().requires_grad_()
+            ex_p, ey_p = sa.softargmax_coords_plain(dp, rp, t, PATCH, row0=row0, height=h,
+                                                    ray_row0=first)
+            ((ex_p * ab).sum() + (ey_p * cb).sum()).backward()
+            e_fwd = max((bex - ex_p).abs().max().item(), (bey - ey_p).abs().max().item())
+            rel = max(((bdir - dp.grad).abs().max() / dp.grad.abs().max()).item(),
+                      ((brays - rp.grad).abs().max() / rp.grad.abs().max()).item())
+            # against the same rows of the whole-image kernel
+            vs_whole = max(((x - y).abs().max() / y.abs().max()).item() for x, y in (
+                (bex, ex[:, rows]), (bey, ey[:, rows]), (bdir, ddir[:, :, rows])))
+            log(f"band rows {row0}-{row0 + BAND_ROWS - 1} (ray slab {first}-{stop - 1}) "
+                f"T={t:.3e}: K6f band vs plain {e_fwd:.3e} px (tolerance {TOL_PX[tol]:g}), "
+                f"K6b band vs plain {rel:.3e} of the largest (tolerance {TOL_GRAD[tol]:g}); "
+                f"ex, ey, d direction vs the whole kernel's rows {vs_whole:.3e} of the largest")
+            if not (e_fwd <= TOL_PX[tol] and rel <= TOL_GRAD[tol] and vs_whole <= TOL_BAND_WHOLE
+                    and torch.isfinite(bdir).all() and torch.isfinite(brays).all()):
+                raise AssertionError("a band form disagrees with its plain version or the "
+                                     "whole-image kernel")
+            err["fwd"] = max(err["fwd"], e_fwd)
+            err["bwd"] = max(err["bwd"], (bdir - dp.grad).abs().max().item(),
+                             (brays - rp.grad).abs().max().item())
+            whole_err = max(whole_err, vs_whole)
+        d_rays = ((summed - drays).abs().max() / drays.abs().max()).item()
+        log(f"T={t:.3e}: the bands' d rays summed against the whole d rays: {d_rays:.3e} of "
+            f"the largest (tolerance {TOL_BAND_WHOLE:g})")
+        if d_rays > TOL_BAND_WHOLE:
+            raise AssertionError("the bands' d rays do not sum to the whole kernel's")
+        whole_err = max(whole_err, d_rays)
+        cases.append(dict(temperature=t, d_rays_vs_whole=d_rays))
+
+    # times of the band at rows 96-191 (its slab 76-191) at the path's temperature
+    t = path_temperature
+    row0 = BAND_ROWS
+    first, stop = sa.ray_slab(row0, BAND_ROWS, h, PATCH)
+    db, slab = d[:, :, row0:].contiguous(), r[:, :, first:stop].contiguous()
+    ab, cb = a[:, row0:].contiguous(), c[:, row0:].contiguous()
+    band = (row0, h, first)
+    plane, slab_plane = BAND_ROWS * w * 4, (stop - first) * w * 4
+    positions = BAND_ROWS * w * (2 * PATCH + 1) ** 2
+    exp_ms = positions / (SM_COUNT * SFU_LANES * max_sm_clock_hz()) * 1e3
+    b_fwd = bound_ms(3 * plane + 3 * slab_plane + 4 * plane, FWD_OPS * positions, other=exp_ms)
+    b_bwd = bound_ms(3 * plane + 3 * slab_plane + 6 * plane + 3 * plane + 3 * slab_plane,
+                     BWD_OPS * positions)
+    bex, bey, bm, bs = sa.softargmax_fwd_band_cuda(db, slab, t, PATCH, *band)
+    fwd_ms = time_ms(lambda: sa.softargmax_fwd_band_cuda(db, slab, t, PATCH, *band))
+    bwd_ms = time_ms(lambda: sa.softargmax_bwd_band_cuda(db, slab, t, PATCH, *band, bex, bey,
+                                                         bm, bs, ab, cb))
+    with torch.no_grad():
+        fwd_plain = time_ms(lambda: sa.softargmax_coords_plain(
+            db, slab, t, PATCH, row0=row0, height=h, ray_row0=first), **PLAIN_REPS)
+    dp, rp = db.clone().requires_grad_(), slab.clone().requires_grad_()
+    ex_p, ey_p = sa.softargmax_coords_plain(dp, rp, t, PATCH, row0=row0, height=h,
+                                            ray_row0=first)
+    loss = (ex_p * ab).sum() + (ey_p * cb).sum()
+    bwd_plain = time_ms(lambda: torch.autograd.grad(loss, (dp, rp), retain_graph=True),
+                        **PLAIN_REPS)
+    case = f"band rows {row0}-{h - 1} of {h}, ray slab {first}-{stop - 1}, seeded, T={t:.3e}"
+    log(f"K6f band at [1,3,{BAND_ROWS},{w}] ({case}): {fwd_ms:.4f} ms (bound {b_fwd[0]:.4f}, "
+        f"{b_fwd[1]}; plain {fwd_plain:.3f}); K6b band {bwd_ms:.4f} ms (bound {b_bwd[0]:.4f}; "
+        f"plain backward {bwd_plain:.3f})")
+    common = dict(case=case, by_case=cases, vs_whole=whole_err, library_ms=None)
+    return {
+        "softargmax_fwd_band": dict(common, max_abs_err=err["fwd"], ms=fwd_ms,
+                                    plain_ms=fwd_plain, bound_ms=b_fwd[0], bound_by=b_fwd[1]),
+        "softargmax_bwd_band": dict(common, max_abs_err=err["bwd"], ms=bwd_ms,
+                                    plain_ms=bwd_plain, bound_ms=b_bwd[0], bound_by=b_bwd[1]),
+    }
+
+
+def kind_runs(root):
+    """Phase 12's runs of tools/hr_2dmesh.py: KIND_ONE_PROCESS and the
+    floor's perturbed omnicam steps in one process, then KIND_GRID's on two
+    ranks of card 0 in one launch; returns each run's JSON line by label."""
+    base = ["--data", "1", "--steps", str(SPACE_KIND_STEPS), "--device", "cuda:0"]
+    one = [[recipe, base + ["--recipe", recipe, "--space", "1", "--pack-mode", mode],
+            "float32", None] for recipe, mode in KIND_ONE_PROCESS]
+    one += [[f"omnicam_floor{seed}", ["--data", "1", "--steps", "1", "--device", "cuda:0",
+                                      "--recipe", "omnicam", "--space", "1"], "float32", seed]
+            for seed in range(FLOOR_DRAWS)]
+    grid = [[f"{recipe}_grid" + ("_bf16" if dtype == "bfloat16" else ""),
+             base + ["--recipe", recipe, "--space", "2"], dtype, None]
+            for recipe, dtype in KIND_GRID]
+    hr_worker(root, "kinds_one_process", one, 1)
+    hr_worker(root, "kinds_grid", grid, 2)
+    out = {}
+    for label, _, _, _ in one + grid:
+        out[label] = json.loads((root / f"{label}.json").read_text())
+        r = out[label]
+        log(f"{label} ({r['model']}, {r['dtype']}, {r['height']}x{r['width']}, space "
+            f"{r['space']}, pack mode {r['pack_mode']}): losses {r['losses']}, terms "
+            f"{r['terms'][0]}, step {r['step_ms']:.2f} ms, peak MiB by rank "
+            f"{[round(x['peak_mib'], 1) for x in r['ranks']]}, launches by rank "
+            f"{[{k: v for k, v in x['launches'].items() if v} for x in r['ranks']]}, "
+            f"collectives a step {r['ranks'][0]['collectives_per_step']}")
+    return out
+
+
+def space_kinds_phase(device, path_temperature):
+    """Phase 12 (see the module docstring); returns its numbers and the band
+    forms' kernel numbers."""
+    import torch
+
+    t_phase = time.perf_counter()
+    log(gpu_name_and_power())
+    kernels = band_kernel_phase(device, path_temperature)
+    _blocker.clear()
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "chip_smoke_space"
+    root.mkdir(parents=True, exist_ok=True)
+    (ROOT / "build" / "chip_smoke_dist").mkdir(parents=True, exist_ok=True)
+    runs = kind_runs(root)
+    first = {}
+    for label in runs:
+        path = root / f"{label}.json.update.pt"
+        first[label] = torch.load(path)
+        path.unlink()
+
+    def cos(a, b, key):
+        u, v = first[a][key].double(), first[b][key].double()
+        return float(u @ v / u.norm() / v.norm())
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    failures = []
+    agree = {}
+    for recipe, _ in KIND_ONE_PROCESS:
+        one, grid = runs[recipe], runs[f"{recipe}_grid"]
+        agree[recipe] = dict(
+            loss_rel=[rel(x, y) for x, y in zip(grid["losses"], one["losses"])],
+            terms_rel={k: rel(grid["terms"][0][k], v) for k, v in one["terms"][0].items()},
+            update_cos=cos(f"{recipe}_grid", recipe, "update"),
+            grad_cos=cos(f"{recipe}_grid", recipe, "grad"),
+            peak_share=[x["peak_mib"] / one["ranks"][0]["peak_mib"] for x in grid["ranks"]],
+            step_ratio=grid["step_ms"] / one["step_ms"])
+        log(f"{recipe}, space 2 against one process: {agree[recipe]}")
+        a = agree[recipe]
+        if a["loss_rel"][0] > TOL_SPACE_LOSS or max(a["terms_rel"].values()) > TOL_SPACE_LOSS:
+            failures.append(f"{recipe}: the first loss or a term parts from one process's")
+        if recipe != "omnicam" and a["update_cos"] < TOL_SPACE_COS:
+            failures.append(f"{recipe}: first update's cosine {a['update_cos']}")
+    floor = [dict(loss_rel=rel(runs[f"omnicam_floor{s}"]["losses"][0],
+                               runs["omnicam"]["losses"][0]),
+                  grad_cos=cos(f"omnicam_floor{s}", "omnicam", "grad"))
+             for s in range(FLOOR_DRAWS)]
+    agree["omnicam"]["floor"] = floor
+    log(f"omnicam's floor, one process against itself from weights moved by 1e-7: {floor}; "
+        f"the grid's first gradient's cosine {agree['omnicam']['grad_cos']:.6f} (bound "
+        f"{TOL_OMNICAM_GRAD_COS})")
+    if agree["omnicam"]["grad_cos"] < TOL_OMNICAM_GRAD_COS:
+        failures.append(f"omnicam: first gradient's cosine {agree['omnicam']['grad_cos']}")
+    for label, r in runs.items():
+        want = KIND_LAUNCHES[label if label in KIND_LAUNCHES
+                             else label.split("_grid")[0].split("_floor")[0]]
+        steps = r["steps"]
+        for x in r["ranks"]:
+            if x["launches"] != {k: want.get(k, 0) * steps for k in x["launches"]}:
+                failures.append(f"{label}: launches {x['launches']}, {want} a step expected")
+        if not all(map(math.isfinite, r["losses"])):
+            failures.append(f"{label}: a loss is not finite")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 12 took {seconds:.1f} s")
+    if failures:
+        raise AssertionError("phase 12: " + "; ".join(failures))
+    result = dict(runs=runs, agreement=agree, seconds=seconds,
+                  band_kernels={k: {q: v[q] for q in ("ms", "bound_ms", "plain_ms", "vs_whole")}
+                                for k, v in kernels.items()})
+    return result, kernels
 
 
 def main():
@@ -3168,6 +3472,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     space = space_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    space_kinds, band_kernels = space_kinds_phase(device, projection_temperature(PROGRESS))
+    measured.update(band_kernels)
+    omnicam_grid = space_kinds["runs"]["omnicam_grid"]["ranks"][0]["launches"]
 
     # each kernel's launches are those of the train path it belongs to, as
     # the configs run it (bfloat16): the NRS steps for the soft-argmax (they
@@ -3188,6 +3497,12 @@ def main():
         # direct alignment; its launches are those of the --refine-direct run
         "warp_jvp": ("warp", "packnet_sfm_tpu/egomotion/alignment.py:65",
                      odometry["direct"]["launches"]),
+        # the band forms of K6f/K6b: their launches are those of phase 12's
+        # omnicam grid (rank 0, over its SPACE_KIND_STEPS steps)
+        "softargmax_fwd_band": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:105",
+                                omnicam_grid),
+        "softargmax_bwd_band": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:159",
+                                omnicam_grid),
     }
     kernels = []
     for name, (source, replaces, counts) in meta.items():
@@ -3196,7 +3511,7 @@ def main():
                      replaces=replaces, launches=counts[name], max_abs_err=m["max_abs_err"],
                      ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                      bound_by=m["bound_by"], library_ms=m.get("library_ms"))
-        for extra in ("dtype", "by_shape", "by_case", "library_note"):
+        for extra in ("dtype", "by_shape", "by_case", "library_note", "case", "vs_whole"):
             if extra in m:
                 entry[extra] = m[extra]
         if name in ("warp_fwd", "warp_bwd"):
@@ -3226,6 +3541,9 @@ def main():
         # phase 11's, by run and rank, over its SPACE_STEPS steps
         entry["space_launches"] = {run: [x["launches"][name] for x in rec["ranks"]]
                                    for run, rec in space["runs"].items()}
+        # phase 12's, by run and rank, over each run's steps
+        entry["space_kinds_launches"] = {run: [x["launches"][name] for x in rec["ranks"]]
+                                         for run, rec in space_kinds["runs"].items()}
         kernels.append(entry)
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
@@ -3235,6 +3553,7 @@ def main():
     print(json.dumps({"models": models}))
     print(json.dumps({"odometry": odometry}))
     print(json.dumps({"space": space}))
+    print(json.dumps({"space_kinds": space_kinds}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,20 @@
 // Both sums are gathers with one fixed order: no atomics, every element of
 // both outputs written once, the same bits on every call.
 //
+// Band form (softargmax_fwd_band / softargmax_bwd_band). On a band of rows of
+// the (data x space) grid (parallel/spatial.py) a call takes the direction's
+// hd rows, the global rows [drow0, drow0 + hd) of an image of H rows, and a
+// slab of the ray surface, its hr global rows [rrow0, rrow0 + hr), which must
+// hold every window of those rows. Window starts are the whole image's,
+// clamp(y - p, 0, H - k) of the global row y, and ey is a global row. The
+// d_ray role gathers a slab row over the pixels of the band whose windows
+// hold it: [win_lo, win_hi] of its global row, cut to the band's rows. The
+// slab's d rays go back to the bands that own its rows outside this band
+// through the halo's backward (spatial.halo). The whole-image call is the
+// band form with hd = hr = H and drow0 = rrow0 = 0: the same integers reach
+// every index and coordinate, so it computes the same bits as before the
+// band form existed.
+//
 // What bounds it on an H100. At the NRS path's shape (h = w = 192, p = 20)
 // a call evaluates 192 * 192 * 41 * 41 = 62 M window positions over 1.5 MB
 // of inputs and outputs: operations, not bytes. Forward: 15 FP32 operations
@@ -102,6 +116,17 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// The rows of a call (see the band form above): direction and every
+// per-pixel field hd rows from global row drow0, rays hr rows from rrow0, of
+// an image of H rows.
+struct Rows {
+  int hd, hr, H, drow0, rrow0;
+  // the first slab row of the window of direction row y (local)
+  __device__ __forceinline__ int wstart(int y, int p) const {
+    return clampi(drow0 + y - p, 0, H - (2 * p + 1)) - rrow0;
+  }
+};
+
 // Forward tiling: a block takes TX x SA_R pixels; a thread owns the SA_R
 // vertically adjacent pixels of one column, and SA_TY threads (one per warp)
 // share a column's window rows.
@@ -163,7 +188,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
                       const float* __restrict__ rays,
                       float* __restrict__ ex, float* __restrict__ ey,
                       float* __restrict__ mo, float* __restrict__ so,
-                      int h, int w, int p, float inv_t, float cut,
+                      Rows rw, int w, int p, float inv_t, float cut,
                       int chunk_rows) {
   constexpr int R = SA_R, NTY = SA_TY;
   extern __shared__ float tile[];
@@ -172,16 +197,17 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
   const int S = TX + k - 1, pstride = chunk_rows * S;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x0 = blockIdx.x * TX, y0 = blockIdx.y * R;
-  const size_t plane = (size_t)h * w;
-  const float* rb = rays + (size_t)blockIdx.z * 3 * plane;
+  const int h = rw.hd;
+  const size_t plane = (size_t)h * w, rplane = (size_t)rw.hr * w;
+  const float* rb = rays + (size_t)blockIdx.z * 3 * rplane;
   const float* db = dir + (size_t)blockIdx.z * 3 * plane;
 
   // The union of the block's windows: window starts grow by at most one per
   // pixel, so it spans at most (TX + k - 1) x (R + k - 1) rays.
   const int ux = clampi(x0 - p, 0, w - k);
   const int uw = clampi(min(x0 + TX - 1, w - 1) - p, 0, w - k) + k - ux;
-  const int uy = clampi(y0 - p, 0, h - k);
-  const int uh = clampi(min(y0 + R - 1, h - 1) - p, 0, h - k) + k - uy;
+  const int uy = rw.wstart(y0, p);
+  const int uh = rw.wstart(min(y0 + R - 1, h - 1), p) + k - uy;
 
   // A thread past the image's edge repeats the edge pixel and stores nothing.
   const int x = min(x0 + tx, w - 1);
@@ -193,7 +219,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
     const int y = min(y0 + r, h - 1);
     const float* dp = db + (size_t)y * w + x;
     d0[r] = dp[0], d1[r] = dp[plane], d2[r] = dp[2 * plane];
-    syl[r] = clampi(y - p, 0, h - k) - uy;
+    syl[r] = rw.wstart(y, p) - uy;
   }
 
   // Pass 1: the largest dot of every pixel's window (the logit is dot / T).
@@ -205,7 +231,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
   for (int c0 = 0; c0 < uh; c0 += chunk_rows) {
     const int nr = min(chunk_rows, uh - c0);
     if (c0 > 0) __syncthreads();
-    stage_rays<NTY>(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
+    stage_rays<NTY>(tile, rb, rplane, w, uy + c0, nr, ux, uw, S, pstride);
     __syncthreads();
     for (int u = c0 + ty; u < c0 + nr; u += NTY) {
       const float* t0 = tile + (u - c0) * S + sxl;
@@ -248,7 +274,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
     const int nr = min(chunk_rows, uh - c0);
     if (uh > chunk_rows) {  // else the whole union is still staged
       __syncthreads();
-      stage_rays<NTY>(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
+      stage_rays<NTY>(tile, rb, rplane, w, uy + c0, nr, ux, uw, S, pstride);
       __syncthreads();
     }
     for (int u = c0 + ty; u < c0 + nr; u += NTY) {
@@ -282,7 +308,7 @@ softargmax_fwd_kernel(const float* __restrict__ dir,
         }
         cx += 1.f;
       }
-      const float cy = (float)(uy + u);
+      const float cy = (float)(rw.rrow0 + uy + u);  // a global row
 #pragma unroll
       for (int r = 0; r < R; ++r) s[r] += sr[r], ny[r] += sr[r] * cy;
     }
@@ -367,19 +393,20 @@ __device__ __forceinline__ void bwd_dir_role(
     const float* __restrict__ rb, const float* __restrict__ ex,
     const float* __restrict__ ey, const float* __restrict__ mi,
     const float* __restrict__ si, const float* __restrict__ gex,
-    const float* __restrict__ gey, float* __restrict__ ddir_b, int h, int w, int p,
+    const float* __restrict__ gey, float* __restrict__ ddir_b, const Rows rw, int w, int p,
     float inv_t, float cut, int ytile, int chunk_rows) {
   constexpr int NTY = SB_TY;
   const int k = 2 * p + 1;
   const int S = TX + k - 1, pstride = chunk_rows * S;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x0 = blockIdx.x * TX, y0 = ytile * R;
-  const size_t plane = (size_t)h * w;
+  const int h = rw.hd;
+  const size_t plane = (size_t)h * w, rplane = (size_t)rw.hr * w;
 
   const int ux = clampi(x0 - p, 0, w - k);
   const int uw = clampi(min(x0 + TX - 1, w - 1) - p, 0, w - k) + k - ux;
-  const int uy = clampi(y0 - p, 0, h - k);
-  const int uh = clampi(min(y0 + R - 1, h - 1) - p, 0, h - k) + k - uy;
+  const int uy = rw.wstart(y0, p);
+  const int uh = rw.wstart(min(y0 + R - 1, h - 1), p) + k - uy;
 
   // A thread past the image's edge repeats the edge pixel and stores nothing.
   const int x = min(x0 + tx, w - 1);
@@ -397,7 +424,7 @@ __device__ __forceinline__ void bwd_dir_role(
     gx[r] = fold_grad(gex[o], si[o], inv_t);
     gy[r] = fold_grad(gey[o], si[o], inv_t);
     exv[r] = ex[o], eyv[r] = ey[o];
-    syl[r] = clampi(y - p, 0, h - k) - uy;
+    syl[r] = rw.wstart(y, p) - uy;
     a0[r] = a1[r] = a2[r] = 0.f;
   }
 
@@ -405,11 +432,11 @@ __device__ __forceinline__ void bwd_dir_role(
   for (int c0 = 0; c0 < uh; c0 += chunk_rows) {
     const int nr = min(chunk_rows, uh - c0);
     if (c0 > 0) __syncthreads();
-    stage_rays<NTY>(tile, rb, plane, w, uy + c0, nr, ux, uw, S, pstride);
+    stage_rays<NTY>(tile, rb, rplane, w, uy + c0, nr, ux, uw, S, pstride);
     __syncthreads();
     for (int u = c0 + ty; u < c0 + nr; u += NTY) {
       const float* t0 = tile + (u - c0) * S + sxl;
-      const float cy = (float)(uy + u);
+      const float cy = (float)(rw.rrow0 + uy + u);
       float tr[R], yc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -496,17 +523,25 @@ __device__ __forceinline__ void bwd_ray_role(
     const float* __restrict__ ex, const float* __restrict__ ey,
     const float* __restrict__ mi, const float* __restrict__ si,
     const float* __restrict__ gex, const float* __restrict__ gey,
-    float* __restrict__ drays_b, int h, int w, int p, float inv_t, float cut, int ytile) {
+    float* __restrict__ drays_b, const Rows rw, int w, int p, float inv_t, float cut,
+    int ytile) {
   constexpr int NTY = SB_TY, NT = TX * SB_TY;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int rx0 = blockIdx.x * TX, ry0 = ytile * R;
-  const size_t plane = (size_t)h * w;
+  const size_t plane = (size_t)rw.hd * w, rplane = (size_t)rw.hr * w;
+  // The pixel rows (local) whose windows hold slab row ry: the interval of
+  // its global row, cut to the band's rows. Both ends grow with ry.
+  const int last = rw.drow0 + rw.hd - 1;
+  auto lo_row = [&](int ry) { return max(win_lo(rw.rrow0 + ry, p), rw.drow0) - rw.drow0; };
+  auto hi_row = [&](int ry) {
+    return min(win_hi(rw.rrow0 + ry, p, rw.H), last) - rw.drow0;
+  };
 
-  // The pixel union of the tile's rays.
+  // The pixel union of the tile's rays (no rows where none of them is held).
   const int ux = win_lo(rx0, p);
   const int uw = win_hi(min(rx0 + TX - 1, w - 1), p, w) - ux + 1;
-  const int uy = win_lo(ry0, p);
-  const int uh = win_hi(min(ry0 + R - 1, h - 1), p, h) - uy + 1;
+  const int uy = lo_row(ry0);
+  const int uh = max(hi_row(min(ry0 + R - 1, rw.hr - 1)) - uy + 1, 0);
 
   // A thread past the edge repeats the edge ray and stores nothing. The
   // lanes' intervals differ near a border: the scan runs to the longest of
@@ -521,12 +556,12 @@ __device__ __forceinline__ void bwd_ray_role(
   int lyl[R], nyl[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int ry = min(ry0 + r, h - 1);
+    const int ry = min(ry0 + r, rw.hr - 1);
     const size_t o = (size_t)ry * w + rx;
-    v0[r] = rb[o], v1[r] = rb[plane + o], v2[r] = rb[2 * plane + o];
-    cyr[r] = (float)ry;
-    lyl[r] = win_lo(ry, p) - uy;
-    nyl[r] = win_hi(ry, p, h) - win_lo(ry, p) + 1;
+    v0[r] = rb[o], v1[r] = rb[rplane + o], v2[r] = rb[2 * rplane + o];
+    cyr[r] = (float)(rw.rrow0 + ry);  // a global row, as ey is
+    lyl[r] = lo_row(ry) - uy;
+    nyl[r] = max(hi_row(ry) - lo_row(ry) + 1, 0);
     a0[r] = a1[r] = a2[r] = 0.f;
   }
 
@@ -602,7 +637,7 @@ __device__ __forceinline__ void bwd_ray_role(
         scan_row(std::false_type{});
     }
   }
-  merge_and_store<R>(part, a0, a1, a2, drays_b, plane, h, w, rx0, ry0);
+  merge_and_store<R>(part, a0, a1, a2, drays_b, rplane, rw.hr, w, rx0, ry0);
 }
 
 // grid.y: first the d_ray role's `ray_tiles` tiles of SB_R ray rows (its
@@ -618,39 +653,43 @@ softargmax_bwd_kernel(const float* __restrict__ dir,
                       const float* __restrict__ mi, const float* __restrict__ si,
                       const float* __restrict__ gex, const float* __restrict__ gey,
                       float* __restrict__ ddir, float* __restrict__ drays,
-                      int h, int w, int p, float inv_t, float cut, int ray_tiles,
+                      Rows rw, int w, int p, float inv_t, float cut, int ray_tiles,
                       int dir_chunk_rows, int ray_cap) {
   extern __shared__ float4 tile4[];
   __shared__ float part[3][SB_TY][SB_R][TX];
-  const size_t plane = (size_t)h * w;
+  const size_t plane = (size_t)rw.hd * w;
   const size_t o3 = (size_t)blockIdx.z * 3 * plane, o1 = (size_t)blockIdx.z * plane;
+  const size_t r3 = (size_t)blockIdx.z * 3 * rw.hr * w;
   if ((int)blockIdx.y < ray_tiles)
-    bwd_ray_role<SB_R>(tile4, ray_cap, part, dir + o3, rays + o3, ex + o1, ey + o1, mi + o1,
-                       si + o1, gex + o1, gey + o1, drays + o3, h, w, p, inv_t, cut,
+    bwd_ray_role<SB_R>(tile4, ray_cap, part, dir + o3, rays + r3, ex + o1, ey + o1, mi + o1,
+                       si + o1, gex + o1, gey + o1, drays + r3, rw, w, p, inv_t, cut,
                        (int)blockIdx.y);
   else
-    bwd_dir_role<SB_R>(reinterpret_cast<float*>(tile4), part, dir + o3, rays + o3, ex + o1,
-                       ey + o1, mi + o1, si + o1, gex + o1, gey + o1, ddir + o3, h, w, p,
+    bwd_dir_role<SB_R>(reinterpret_cast<float*>(tile4), part, dir + o3, rays + r3, ex + o1,
+                       ey + o1, mi + o1, si + o1, gex + o1, gey + o1, ddir + o3, rw, w, p,
                        inv_t, cut, (int)blockIdx.y - ray_tiles, dir_chunk_rows);
 }
 
 constexpr long long SMEM_BUDGET = 99 * 1024;  // of what a block stages
 
-bool bad_shape(int b, int h, int w, int p) {
+// A call the kernels cannot take: a window larger than the image or its
+// width, a grid past the launch limits, or rows that are not a band of the
+// image with a ray slab that holds every window of the band.
+bool bad_shape(int b, const Rows& rw, int w, int p) {
   const int k = 2 * p + 1;
-  return b < 0 || p < 0 || h < k || w < k || h > 65535 || b > 65535;
+  if (b < 0 || p < 0 || rw.H < k || w < k || rw.H > 65535 || b > 65535 || rw.hd < 1 ||
+      rw.hr < k)
+    return true;
+  if (rw.drow0 < 0 || rw.drow0 + rw.hd > rw.H || rw.rrow0 < 0 || rw.rrow0 + rw.hr > rw.H)
+    return true;
+  const int s0 = std::min(std::max(rw.drow0 - p, 0), rw.H - k);
+  const int s1 = std::min(std::max(rw.drow0 + rw.hd - 1 - p, 0), rw.H - k) + k;
+  return rw.rrow0 > s0 || rw.rrow0 + rw.hr < s1;
 }
 
-}  // namespace
-
-// All tensors are contiguous float32 on the device: dir, rays, ddir, drays
-// [b, 3, h, w]; ex, ey, m, s, gex, gey [b, h, w]; m is the window's largest dot, s the sum of exp((dot - m) / T).
-// Both launch on `stream` and return cudaGetLastError() (0 on success).
-
-extern "C" int softargmax_fwd(const float* dir, const float* rays, float* ex,
-                              float* ey, float* m, float* s, int b, int h,
-                              int w, int p, float temperature, void* stream) {
-  if (bad_shape(b, h, w, p) || !(temperature > 0.f)) return (int)cudaErrorInvalidValue;
+int launch_fwd(const float* dir, const float* rays, float* ex, float* ey, float* m, float* s,
+               int b, const Rows& rw, int w, int p, float temperature, void* stream) {
+  if (bad_shape(b, rw, w, p) || !(temperature > 0.f)) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   // Shared memory: the whole window union of a block where it fits the
   // budget, else as many rows at a time as do.
@@ -666,19 +705,18 @@ extern "C" int softargmax_fwd(const float* dir, const float* rays, float* ex,
   const cudaError_t err = cudaFuncSetAttribute(
       softargmax_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + TX - 1) / TX, (h + SA_R - 1) / SA_R, b), block(TX, SA_TY);
+  const dim3 grid((w + TX - 1) / TX, (rw.hd + SA_R - 1) / SA_R, b), block(TX, SA_TY);
   softargmax_fwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      dir, rays, ex, ey, m, s, h, w, p, 1.0f / temperature, CUTOFF * temperature,
+      dir, rays, ex, ey, m, s, rw, w, p, 1.0f / temperature, CUTOFF * temperature,
       chunk_rows);
   return (int)cudaGetLastError();
 }
 
-extern "C" int softargmax_bwd(const float* dir, const float* rays,
-                              const float* ex, const float* ey, const float* m,
-                              const float* s, const float* gex, const float* gey,
-                              float* ddir, float* drays, int b, int h, int w,
-                              int p, float temperature, void* stream) {
-  if (bad_shape(b, h, w, p) || !(temperature > 0.f)) return (int)cudaErrorInvalidValue;
+int launch_bwd(const float* dir, const float* rays, const float* ex, const float* ey,
+               const float* m, const float* s, const float* gex, const float* gey,
+               float* ddir, float* drays, int b, const Rows& rw, int w, int p,
+               float temperature, void* stream) {
+  if (bad_shape(b, rw, w, p) || !(temperature > 0.f)) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   const int k = 2 * p + 1;
   // d_dir role: the window union of a block as the forward stages it.
@@ -691,18 +729,62 @@ extern "C" int softargmax_bwd(const float* dir, const float* rays,
   // d_ray role: the pixel union of a tile reaches at most 2p past the tile
   // on either side, at 32 bytes a pixel; at least one row of it must fit.
   const long long uw_max = std::min((long long)w, (long long)TX + 4LL * p);
-  const long long uh_max = std::min((long long)h, (long long)SB_R + 4LL * p);
+  const long long uh_max = std::min((long long)rw.hd, (long long)SB_R + 4LL * p);
   const long long ray_cap = std::min(uw_max * uh_max, SMEM_BUDGET / 32);
   if (ray_cap < uw_max) return (int)cudaErrorInvalidValue;
-  const int tiles = (h + SB_R - 1) / SB_R;  // of either role
-  if (2 * tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int ray_tiles = (rw.hr + SB_R - 1) / SB_R, dir_tiles = (rw.hd + SB_R - 1) / SB_R;
+  if (ray_tiles + dir_tiles > 65535) return (int)cudaErrorInvalidValue;
   const int smem = 16 + (int)std::max(dir_chunk_rows * row_bytes, ray_cap * 32);
   const cudaError_t err = cudaFuncSetAttribute(
       softargmax_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + TX - 1) / TX, 2 * tiles, b), block(TX, SB_TY);
+  const dim3 grid((w + TX - 1) / TX, ray_tiles + dir_tiles, b), block(TX, SB_TY);
   softargmax_bwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      dir, rays, ex, ey, m, s, gex, gey, ddir, drays, h, w, p, 1.0f / temperature,
-      CUTOFF * temperature, tiles, dir_chunk_rows, (int)ray_cap);
+      dir, rays, ex, ey, m, s, gex, gey, ddir, drays, rw, w, p, 1.0f / temperature,
+      CUTOFF * temperature, ray_tiles, dir_chunk_rows, (int)ray_cap);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// All tensors are contiguous float32 on the device: dir, rays, ddir, drays
+// [b, 3, h, w]; ex, ey, m, s, gex, gey [b, h, w]; m is the window's largest dot, s the sum of exp((dot - m) / T).
+// Every launcher launches on `stream` and returns cudaGetLastError() (0 on success).
+
+extern "C" int softargmax_fwd(const float* dir, const float* rays, float* ex,
+                              float* ey, float* m, float* s, int b, int h,
+                              int w, int p, float temperature, void* stream) {
+  return launch_fwd(dir, rays, ex, ey, m, s, b, Rows{h, h, h, 0, 0}, w, p, temperature,
+                    stream);
+}
+
+extern "C" int softargmax_bwd(const float* dir, const float* rays,
+                              const float* ex, const float* ey, const float* m,
+                              const float* s, const float* gex, const float* gey,
+                              float* ddir, float* drays, int b, int h, int w,
+                              int p, float temperature, void* stream) {
+  return launch_bwd(dir, rays, ex, ey, m, s, gex, gey, ddir, drays, b, Rows{h, h, h, 0, 0},
+                    w, p, temperature, stream);
+}
+
+// The band forms: dir, ddir [b, 3, hd, w] and ex, ey, m, s, gex, gey [b, hd, w]
+// are the global rows [drow0, drow0 + hd) of an image of H rows; rays, drays
+// [b, 3, hr, w] its rows [rrow0, rrow0 + hr), every window of the band's rows
+// among them. ey is a global row.
+extern "C" int softargmax_fwd_band(const float* dir, const float* rays, float* ex,
+                                   float* ey, float* m, float* s, int b, int hd, int hr,
+                                   int w, int H, int drow0, int rrow0, int p,
+                                   float temperature, void* stream) {
+  return launch_fwd(dir, rays, ex, ey, m, s, b, Rows{hd, hr, H, drow0, rrow0}, w, p,
+                    temperature, stream);
+}
+
+extern "C" int softargmax_bwd_band(const float* dir, const float* rays,
+                                   const float* ex, const float* ey, const float* m,
+                                   const float* s, const float* gex, const float* gey,
+                                   float* ddir, float* drays, int b, int hd, int hr, int w,
+                                   int H, int drow0, int rrow0, int p, float temperature,
+                                   void* stream) {
+  return launch_bwd(dir, rays, ex, ey, m, s, gex, gey, ddir, drays, b,
+                    Rows{hd, hr, H, drow0, rrow0}, w, p, temperature, stream);
 }

@@ -41,6 +41,7 @@ from packnet_sfm_tpu_torch.engine.metrics import (
 from packnet_sfm_tpu_torch.models.sfm import (
     DEPTH_SCALES,
     SfmModelDef,
+    check_band,
     model_forward,
     model_loss,
     scales_used,
@@ -202,13 +203,17 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     over the data ranks of the whole samples' gradient. On the grid the
     gradients are views of DDP's buckets (no second copy of them at the
     resolutions the grid is for). The metrics are the shares summed over
-    the space group: every rank of it reports its data rank's loss. A
-    height that does not split into bands of a multiple of the depth
-    network's stride raises ``ValueError`` on every rank, before the step's
-    first collective (``models/sfm.check_band``).
+    the space group: every rank of it reports its data rank's loss. The
+    grid trains ``SelfSupModel``, ``SemiSupModel``, ``VelSupModel`` and
+    ``GenericSelfSupModel``; another kind, a depth network without a band
+    path, or a height that does not split into bands of a multiple of the
+    depth network's stride raises ``ValueError`` on every rank, before the
+    step's first collective (``models/sfm.check_band``).
     """
     device = next(model.parameters()).device
-    band = _space_band(model, mesh)
+    band = mesh.band() if mesh is not None else None
+    if band is not None:        # the kind and the depth network, before any collective
+        check_band(model, None, band)
     loss_module = _LossModule(model, band)
     distributed = torch.distributed.is_initialized()
     if distributed and not model.has_loss:

@@ -23,13 +23,17 @@ During training the depth network's inputs (every image-like key of
 ``input_keys``: 'rgb', and 'input_depth' for completion) are flipped left
 to right together at random, and its inverse depths flipped back.
 
-On a band of rows (``band``, ``parallel/spatial.py``; ``SelfSupModel`` with
-PackNet or DepthResNet) the batch is whole: the depth network runs on the
-band's rows of the image, the pose network on the whole images (every rank
-of the space group computes the same poses), and the loss is the band's
-share. The pose's gradient is still the whole batch's: each rank's share of
-the loss reaches the pose only through its own rows, and the shares'
-gradients are summed over the ranks.
+On a band of rows (``band``, ``parallel/spatial.py``; ``check_band``: the
+self-supervised, SemiSup, VelSup and NRS kinds, with PackNet, DepthResNet or
+RaySurfaceResNet) the batch is whole: the depth network runs on the band's
+rows of the image, the pose network on the whole images (every rank of the
+space group computes the same poses), and the loss is the band's share. The
+pose's gradient is still the whole batch's: each rank's share of the loss
+reaches the pose only through its own rows, and the shares' gradients are
+summed over the ranks. The velocity loss, a function of the poses alone, is
+whole on every rank, and its share is the loss over the band count. The
+supervised loss takes its sums over every rank's pixels
+(``losses/supervised.py``), with a band or without one.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from packnet_sfm_tpu_torch.losses.supervised import SupervisedLossConfig, superv
 from packnet_sfm_tpu_torch.losses.velocity import velocity_loss
 from packnet_sfm_tpu_torch.ops.image import flip_lr, interpolate_image
 from packnet_sfm_tpu_torch.parallel import spatial
+from packnet_sfm_tpu_torch.parallel.mesh import batch_group
 
 MODEL_KINDS = ("SfmModel", "SelfSupModel", "SemiSupModel", "VelSupModel",
                "SemiSupCompletionModel", "GenericSfmModel", "GenericSelfSupModel")
@@ -144,8 +149,9 @@ def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool,
             if key in out:
                 out[key] = [flip_lr(d) for d in out[key]]
     if train and model.upsample_depth_maps:
-        full = out["inv_depths"][0].shape[1:3]
-        out["inv_depths"] = [interpolate_image(d, full, mode="nearest")
+        h, w = out["inv_depths"][0].shape[1:3]
+        full = (h if band is None else band.rows(h), w)
+        out["inv_depths"] = [interpolate_image(d, full, mode="nearest", band=band)
                              for d in out["inv_depths"]]
     return out
 
@@ -198,13 +204,27 @@ def scales_used(model: SfmModelDef, num_scales: Optional[int] = None) -> int:
     return used
 
 
-def check_band(model: SfmModelDef, height: int, band: spatial.Band) -> None:
-    """Refuse what cannot run on ``band``: a kind other than
-    ``SelfSupModel``, a depth network without a ``space_stride``, or an
-    image height that does not split into bands of a multiple of it."""
-    if model.kind != "SelfSupModel":
-        raise ValueError(f"{model.kind} does not run on a space axis: SelfSupModel does")
-    spatial.check_rows(height, band.count, spatial.network_stride(model.depth_net))
+# the kinds that train on a band; the others have no loss (SfmModel,
+# GenericSfmModel, refused in a process group already) or no JAX path to
+# port (SemiSupCompletionModel)
+BAND_KINDS = ("SelfSupModel", "SemiSupModel", "VelSupModel", "GenericSelfSupModel")
+
+
+def check_band(model: SfmModelDef, height: Optional[int], band: spatial.Band) -> None:
+    """Refuse what cannot run on ``band``: a kind without a band path, a
+    depth network without a ``space_stride``, or an image height (None: not
+    known yet) that does not split into bands of a multiple of it."""
+    if model.kind == "SemiSupCompletionModel":
+        raise ValueError(
+            "SemiSupCompletionModel does not run on a space axis: the JAX package cannot "
+            "train it to port its grid step (ROADMAP.md section 3, faults (m) its bfloat16 "
+            "step, (n) its sparse pool's gradient, (o) its dropout)")
+    if model.kind not in BAND_KINDS:
+        raise ValueError(f"{model.kind} does not run on a space axis: "
+                         f"{', '.join(BAND_KINDS)} do")
+    stride = spatial.network_stride(model.depth_net)
+    if height is not None:
+        spatial.check_rows(height, band.count, stride)
 
 
 def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
@@ -230,12 +250,13 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     context = batch.get("rgb_context_original", batch.get("rgb_context"))
     if model.kind == "GenericSelfSupModel":
         h, w = image.shape[1:3]
+        canonical = canonical_pinhole_rays(h, w, device=image.device)
         with record_function("photometric_loss"):
             loss, metrics = generic_multiview_photometric_loss(
                 image, context, out["inv_depths"], out["ray_surface"],
-                canonical_pinhole_rays(h, w, device=image.device), out["poses"],
+                canonical if band is None else band.take(canonical, dim=0), out["poses"],
                 model.generic_photometric, float(progress),
-                projection_temperature(progress))
+                projection_temperature(progress), band=band)
         metrics["loss"] = loss
         return loss, (metrics, out)
 
@@ -257,12 +278,14 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     if supervised:
         with record_function("supervised_loss"):
             gt_inv = depth2inv(batch["depth"])
-            sup_loss, sup_metrics = supervised_loss(out["inv_depths"], gt_inv, model.supervised)
+            sup_loss, sup_metrics = supervised_loss(out["inv_depths"], gt_inv, model.supervised,
+                                                    band, batch_group())
             metrics.update(sup_metrics)
             loss = loss + w * sup_loss
             if "inv_depths_rgbd" in out:
                 # the rgb+d branch's supervision and the feature consistency
-                sup_rgbd, _ = supervised_loss(out["inv_depths_rgbd"], gt_inv, model.supervised)
+                sup_rgbd, _ = supervised_loss(out["inv_depths_rgbd"], gt_inv, model.supervised,
+                                              band, batch_group())
                 metrics["supervised_loss_rgbd"] = sup_rgbd
                 loss = loss + model.weight_rgbd * w * sup_rgbd
                 if "depth_loss" in out:
@@ -270,7 +293,7 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
                     loss = loss + out["depth_loss"]
 
     if model.kind == "VelSupModel":
-        vel_loss, vel_metrics = velocity_loss(out["poses"], batch["pose_context"])
+        vel_loss, vel_metrics = velocity_loss(out["poses"], batch["pose_context"], band)
         metrics.update(vel_metrics)
         loss = loss + model.velocity_loss_weight * vel_loss
 

@@ -32,7 +32,13 @@ class RaySurfaceDecoder(DepthDecoder):
 
 class RaySurfaceResNet(nn.Module):
     """rgb [B, H, W, 3] -> {'inv_depths': 4 scales [B, Hs, Ws, 1] finest
-    first, 'ray_surface': [B, H, W, 3]} (NHWC at the boundary)."""
+    first, 'ray_surface': [B, H, W, 3]} (NHWC at the boundary). On a band
+    of rows (``parallel/spatial.py``) both decoders run on the band as
+    DepthResNet's does: their reflection pads take the rows across its
+    edges from the neighbouring bands."""
+
+    # the encoder's stride, as DepthResNet's: a band keeps a row at 1/32
+    space_stride = 32
 
     def __init__(self, version: str = "18", min_depth: float = 0.1,
                  max_depth: float = 100.0):

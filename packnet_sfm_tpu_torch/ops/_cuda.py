@@ -31,6 +31,8 @@ SIGNATURES = {
     "softargmax": {
         "softargmax_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
         "softargmax_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+        "softargmax_fwd_band": [_P] * 6 + [_I] * 8 + [_F, _P],
+        "softargmax_bwd_band": [_P] * 10 + [_I] * 8 + [_F, _P],
     },
     "warp": {
         "warp_fwd": [_P] * 3 + [_I] * 7 + [_P],

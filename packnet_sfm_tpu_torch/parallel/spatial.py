@@ -17,11 +17,15 @@ runs with no padding along H: zeros, -inf or the reflection are padded at
 the global top and bottom only. The band-aware ops: ``conv2d`` (any k,
 stride 1 or 2; without a padded copy of the band, ``_BandConv2d``),
 ``max_pool3s2``, ``reflect_pad_rows``, ``group_norm`` (statistics summed
-over the space group), and the loss helpers ``mean`` (a mean over the
-global pixel count). The port's modules call them when a
+over the space group), ``take_rows`` (any global rows a band reads, as the
+band resizes of ``ops/image.interpolate_image`` and the NRS projection's
+ray slab do), and the loss helpers ``mean`` (a mean over the global pixel
+count), ``share`` (a loss computed from sums over a group, for the
+supervised methods) and ``max_over``. The port's modules call them when a
 band is in effect (``use``): ``nn/layers.Conv2d`` and ``FastGroupNorm``,
 ``ops/fold_conv.channel_conv3d`` / ``conv2d_same``, the ResNet's max pool
-and reflection pads, SSIM and the smoothness term.
+and reflection pads, SSIM, the smoothness term, the supervised loss and
+``geometry/camera_generic.generic_project``.
 
 The exchanges run over the space group with ``all_gather``: each rank
 sends the rows its neighbours need, and takes its halo from theirs. A
@@ -34,7 +38,7 @@ the same order.
 
 ``collectives`` counts this module's all-gathers (the exchanges, forward
 and backward) and all-reduces (the group norm's statistics and its
-backward's sums; ``sum_over``) since ``reset_counts``.
+backward's sums; ``sum_over`` and ``max_over``) since ``reset_counts``.
 """
 
 from __future__ import annotations
@@ -128,7 +132,7 @@ def network_stride(depth_net) -> int:
     stride = getattr(depth_net, "space_stride", None)
     if stride is None:
         raise ValueError(f"{type(depth_net).__name__} does not run on a space axis: "
-                         "PackNet01, PackNetSlim01 and DepthResNet do")
+                         "PackNet01, PackNetSlim01, DepthResNet and RaySurfaceResNet do")
     return stride
 
 
@@ -239,6 +243,24 @@ def _halo_whole_grad(grad, top, bottom, mode, dim, band):
         _edge_pad_grad(padded.narrow(dim, 0, top), whole, top, True, dim)
         _edge_pad_grad(padded.narrow(dim, top + n, bottom), whole, bottom, False, dim)
     return whole.narrow(dim, band.index * h, h).contiguous()
+
+
+def take_rows(x: torch.Tensor, bounds, dim: int = 2,
+              band: Optional[Band] = None) -> torch.Tensor:
+    """The global rows [start, stop) = ``bounds(band.index)`` of a band
+    ``x`` (rows on ``dim``), from this band and its neighbours
+    (differentiable). ``bounds(i)`` gives them for every band i: the halo
+    is as deep as the farthest reach of any band, so that every rank
+    exchanges alike (deeper than a band, the whole tensor is gathered).
+    Rows outside the image must not be asked for."""
+    band = band or current()
+    h = x.shape[dim]
+    reach = [bounds(i) for i in range(band.count)]
+    top = max(max(i * h - a, 0) for i, (a, _) in enumerate(reach))
+    bottom = max(max(b - (i + 1) * h, 0) for i, (_, b) in enumerate(reach))
+    start, stop = reach[band.index]
+    return halo(x, top, bottom, "zeros", dim, band).narrow(
+        dim, start - band.start(h) + top, stop - start)
 
 
 def halo(x: torch.Tensor, top: int, bottom: int, mode: str = "zeros", dim: int = 2,
@@ -434,6 +456,34 @@ def mean(x: torch.Tensor, band: Optional[Band]) -> torch.Tensor:
     if band is None:
         return x.mean()
     return x.sum() / (x.numel() * band.count)
+
+
+def share(loss_fn, sums: torch.Tensor, group, band: Optional[Band]) -> torch.Tensor:
+    """This rank's share of a loss that needs sums over the whole batch:
+    ``loss_fn`` of ``sums`` (this rank's, stacked) summed over ``group``
+    (None: this rank's are the whole), divided by the band count. Every
+    rank of a space group computes the whole loss; the backward of the sum
+    gives each rank's sums the gradient of every rank's share, which the
+    train step's scale by the band count and DDP's mean make the whole
+    loss's gradient."""
+    if group is not None:
+        from packnet_sfm_tpu_torch.parallel.mesh import all_reduce_sum
+
+        sums = all_reduce_sum(sums, group)
+    loss = loss_fn(sums)
+    return loss if band is None else loss / band.count
+
+
+def max_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The largest value of ``t`` over the ranks of ``group`` (None: this
+    rank's), detached: a threshold that no gradient flows through."""
+    t = t.detach().amax()
+    if group is None:
+        return t
+    t = t.clone()
+    collectives["all_reduce"] += 1
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
 
 
 def sum_over(values: dict, band: Optional[Band]) -> dict:
