@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (packnet_sfm_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels     # phases 1 and 2 alone (about a minute)
 
 Phases, each of which fails the run:
 1. Build every kernel of csrc/ with nvcc for sm_90a, from this checkout.
@@ -22,7 +23,17 @@ Phases, each of which fails the run:
    them, and image.float() + F.grid_sample; warp_jvp (the coordinate
    tangent) against the plain warp under forward AD on coordinates off
    every side, both padding modes, C = 3, 1 and 4, B = 1 and 3, and its
-   time at the odometry path's [1,192,640,3].
+   time at the odometry path's [1,192,640,3]. warp_bwd_image (the image's
+   gradient, float32 and bfloat16) on every warp case above and on one
+   where 2000 samples collapse onto a corner under border padding and one
+   where the output is 128 times the image: within TOL_WARP_GRAD of the
+   plain version (bfloat16: beyond a bfloat16 spacing of each element, and
+   the float32 kernel's result rounded once), the same bits over 3 calls,
+   one of them under torch.use_deterministic_algorithms(True); grid_sample
+   under autograd with the image requiring a gradient, the call that
+   reaches it (no train, eval or odometry path does), launches it once in
+   each dtype; its times at the four shapes beside the plain version's and
+   F.grid_sample's image gradient.
 3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
    random weights from seed 0) on synthetic samples, as the config says:
@@ -246,10 +257,19 @@ TOL_LOSS_CPU = 1e-3
 # Warp kernels vs plain version: image values in [0, 1). The forward differs
 # only by the rounding of fused multiply-adds (measured 1.2e-7). Gradients
 # are held relative to their largest magnitude: d coords sums C products per
-# pixel in another order (measured 2e-7); d image is summed with atomics, in
-# an order that changes from run to run (measured 3e-6).
+# pixel in another order (measured 2e-7); d image sums each pixel's taps in
+# key order, one fixed order, where the plain version's scatter takes its
+# own (measured 2.2e-6 on an H100 with 8000 taps on one pixel).
 TOL_WARP_FWD = 1e-5
 TOL_WARP_GRAD = 1e-4
+# warp_bwd_image, the warp's image gradient (a gather over a sorted index):
+# per output pixel the function must read the coordinates (8 B) and the
+# cotangent (4C B) and write d image (4C B a source pixel); FP32 operations
+# ~24 for the coordinates and weights, then a multiply-add (2) a tap and
+# channel. Its index (counts, offsets and keys, each written and read) moves
+# some 40 B a pixel more, which bound_with_index_ms adds.
+WARP_IMAGE_OPS = (24, 8)
+WARP_IMAGE_INDEX_BYTES = 40
 # FP32 operations per output pixel of the warp, for the bound: coordinates
 # and weights ~20, then 8 (forward) or 16 (backward) per channel.
 WARP_OPS = {"fwd": (20, 8), "bwd": (24, 16)}
@@ -726,9 +746,67 @@ def smooth_coords(gen, b, h, w, device):
     return (torch.stack([xs, ys], dim=-1) + shift).contiguous().to(device)
 
 
+def image_grad_checks(warp, coords, grad, hw, pad, d_image, want):
+    """warp_bwd_image's bits over 3 calls (the first is ``d_image``), one of
+    them under deterministic algorithms, and its bfloat16 form: the float32
+    result rounded once, within TOL_WARP_GRAD of the largest beyond a
+    bfloat16 spacing of each element of the plain version ``want``.
+    Returns the bfloat16 form's largest absolute error."""
+    import torch
+
+    again = warp.warp_bwd_image_cuda(coords, grad, hw, torch.float32, pad)
+    torch.use_deterministic_algorithms(True)
+    try:
+        deterministic = warp.warp_bwd_image_cuda(coords, grad, hw, torch.float32, pad)
+        d16 = warp.warp_bwd_image_cuda(coords, grad, hw, torch.bfloat16, pad)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -120))) - 7)
+    e16 = ((d16.float() - want).abs() - spacing).clamp(min=0).max().item() / \
+        want.abs().max().item()
+    same = torch.equal(again, d_image) and torch.equal(deterministic, d_image)
+    log(f"warp_bwd_image: the same bits over 3 calls {same}; bfloat16 {e16:.3e} of the "
+        f"largest beyond its spacing, the float32 result rounded "
+        f"{torch.equal(d16, d_image.bfloat16())}")
+    if not (same and torch.equal(d16, d_image.bfloat16()) and e16 <= TOL_WARP_GRAD):
+        raise AssertionError("warp_bwd_image: differing bits or a wrong bfloat16 form")
+    return (d16.float() - want).abs().max().item()
+
+
+def image_grad_launches(warp, device, shape):
+    """The call that reaches warp_bwd_image: grid_sample under autograd with
+    the image requiring a gradient, at ``shape`` = (B, H, W), C = 3, float32
+    and bfloat16 images; the counts read around each."""
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    b, h, w = shape
+    coords = smooth_coords(gen, b, h, w, device)
+    grad = torch.randn((b, h, w, 3), generator=gen).to(device)
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        image = torch.rand((b, h, w, 3), generator=gen).to(device, dtype).requires_grad_()
+        reset_counts()
+        warp.grid_sample(image, coords).backward(grad)
+        torch.cuda.synchronize()
+        launches.update({k: v for k, v in read_counts().items() if v})
+        if image.grad is None or image.grad.dtype != dtype or \
+                not torch.isfinite(image.grad).all():
+            raise AssertionError(f"no finite {dtype} image gradient through grid_sample")
+    want = {"warp_fwd": 1, "warp_bwd_image": 1, "warp_fwd_bf16": 1, "warp_bwd_image_bf16": 1}
+    log(f"grid_sample's image gradient at [{b},{h},{w},3], float32 and bfloat16: launches "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"image gradient launches {launches}, expected {want}")
+    return launches
+
+
 def warp_kernel_phase(device, shapes):
-    """warp_fwd/warp_bwd against the plain version, then their times at the
-    flagship loss's shapes beside the plain version's and F.grid_sample's."""
+    """warp_fwd/warp_bwd/warp_bwd_image against the plain version, then
+    their times at the flagship loss's shapes beside the plain version's and
+    F.grid_sample's, and the launches of the call that reaches
+    warp_bwd_image."""
     import torch
     import torch.nn.functional as F
 
@@ -747,8 +825,15 @@ def warp_kernel_phase(device, shapes):
     # HR recipe's finest scale (two contexts, 384x1280, space 2) and a small
     # band in border mode
     cases += [(2, 384, 1280, 3, 192, 1280, "zeros"), (3, 48, 160, 1, 24, 160, "border")]
+    # the image gradient's longer segments: 2000 samples collapsed onto the
+    # bottom-right pixel (8000 taps on it), and an output 128 times the
+    # image (some 500 taps a pixel)
+    collapsed = (1, 48, 160, 3, 48, 160, "border")
+    cases += [collapsed, (2, 6, 10, 3, 48, 160, "zeros")]
     for b, h, w, c, ho, wo, pad in cases:
         image, coords, grad = warp_inputs(gen, b, h, w, c, ho, wo, device, spread=1.3)
+        if (b, h, w, c, ho, wo, pad) == collapsed:
+            coords.view(-1, 2)[:2000] = torch.tensor([3.0, 2.5], device=device)
         out = warp.warp_fwd_cuda(image, coords, pad)
         d_image, d_coords = warp.warp_bwd_cuda(image, coords, grad, pad, need_image_grad=True)
         _, d_coords_only = warp.warp_bwd_cuda(image, coords, grad, pad)
@@ -770,7 +855,11 @@ def warp_kernel_phase(device, shapes):
                 and torch.isfinite(d_image).all()):
             raise AssertionError("non-finite warp kernel output")
         err["fwd"] = max(err["fwd"], e_fwd)
-        err["bwd"] = max(err["bwd"], e_dc, e_di)
+        err["bwd"] = max(err["bwd"], e_dc)
+        err["bwd_image"] = max(err.get("bwd_image", 0.0), e_di)
+        err["bwd_image_bf16"] = max(err.get("bwd_image_bf16", 0.0),
+                                    image_grad_checks(warp, coords, grad, (h, w), pad,
+                                                      d_image, ip.grad))
 
         # the bfloat16-image variants on the same case: the plain version on
         # the widened image is the same function
@@ -794,9 +883,10 @@ def warp_kernel_phase(device, shapes):
         err["bwd_bf16"] = max(err.get("bwd_bf16", 0.0), e_dc)
 
     # times at the main path's shapes: zeros padding, C = 3, image and output
-    # of one size, the image is data (no d image)
+    # of one size, the image is data (no d image), then warp_bwd_image
     gen = torch.Generator().manual_seed(1)
-    rows = {"fwd": [], "bwd": [], "fwd_bf16": [], "bwd_bf16": []}
+    rows = {"fwd": [], "bwd": [], "fwd_bf16": [], "bwd_bf16": [], "bwd_image": [],
+            "bwd_image_bf16": []}
     for b, h, w in shapes:
         image = torch.rand((b, h, w, 3), generator=gen).to(device)
         coords = smooth_coords(gen, b, h, w, device)
@@ -864,12 +954,45 @@ def warp_kernel_phase(device, shapes):
                 f"{f32[key]:.4f}, image.float() + float32 kernel {cast[key]:.4f}, "
                 f"image.float() + F.grid_sample {route:.4f}, plain {pl:.3f}, "
                 f"bound {bounds[key][0]:.4f} ({bounds[key][1]})")
+
+        # the image's gradient: warp_bwd_image against the plain version's
+        # autograd and F.grid_sample's backward for the image alone (its
+        # bfloat16 form has no one PyTorch call: library_ms null)
+        ip, ip16 = image.clone().requires_grad_(), img16.clone().requires_grad_()
+        out_p = (warp.grid_sample_plain(ip, coords) * grad).sum()
+        out_p16 = (warp.grid_sample_plain(ip16.float(), coords) * grad).sum()
+        nl = nchw.clone().requires_grad_()
+        out_l = (library(coords, nl) * grad.permute(0, 3, 1, 2)).sum()
+        times = {
+            "bwd_image": (time_ms(lambda: warp.warp_bwd_image_cuda(coords, grad, (h, w))),
+                          time_ms(lambda: torch.autograd.grad(out_p, ip, retain_graph=True)),
+                          time_ms(lambda: torch.autograd.grad(out_l, nl, retain_graph=True))),
+            "bwd_image_bf16": (
+                time_ms(lambda: warp.warp_bwd_image_cuda(coords, grad, (h, w), torch.bfloat16)),
+                time_ms(lambda: torch.autograd.grad(out_p16, ip16, retain_graph=True)), None)}
+        for key, d_bytes in (("bwd_image", 12), ("bwd_image_bf16", 6)):
+            # coords 8 B and the cotangent 12 B read, d image written, a pixel
+            n_bytes = px * (8 + 12 + d_bytes)
+            n_ops = px * (WARP_IMAGE_OPS[0] + 3 * WARP_IMAGE_OPS[1])
+            bound, by = bound_ms(n_bytes, n_ops)
+            k, pl, lib = times[key]
+            with_index = bound_ms(n_bytes + px * WARP_IMAGE_INDEX_BYTES, n_ops)[0]
+            rows[key].append(dict(shape=[b, h, w, 3], ms=k, plain_ms=pl, bound_ms=bound,
+                                  bound_by=by, library_ms=lib, bound_with_index_ms=with_index))
+            log(f"warp_{key} at [{b},{h},{w},3]: kernel {k:.4f} ms, plain {pl:.3f}, "
+                f"F.grid_sample {'n/a' if lib is None else f'{lib:.4f}'}, bound {bound:.4f} "
+                f"({by}), with its index's bytes {with_index:.4f}")
+        del out_p, out_p16, out_l
     # the line's headline numbers are those of the finest scale; the other
     # three scales go along under by_shape
-    return {f"warp_{key}": dict(max_abs_err=err[key], by_shape=rows[key],
-                                dtype="bfloat16" if key.endswith("bf16") else "float32",
-                                **{k: v for k, v in rows[key][0].items() if k != "shape"})
-            for key in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
+    result = {f"warp_{key}": dict(max_abs_err=err[key], by_shape=rows[key],
+                                  dtype="bfloat16" if key.endswith("bf16") else "float32",
+                                  **{k: v for k, v in rows[key][0].items() if k != "shape"})
+              for key in rows}
+    launches = image_grad_launches(warp, device, shapes[0])
+    for key in ("warp_bwd_image", "warp_bwd_image_bf16"):
+        result[key]["path_launches"] = launches
+    return result
 
 
 # warp_jvp (the warp's coordinate tangent) at the ego-motion path's shape:
@@ -3402,7 +3525,9 @@ def space_kinds_phase(device, path_temperature):
     return result, kernels
 
 
-def main():
+def main(kernels_only=False):
+    """Every phase; with ``kernels_only`` (``--kernels``), phases 1 and 2
+    alone, printing what they measured as one JSON line and no result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3448,6 +3573,9 @@ def main():
                             projection_temperature(PROGRESS))
     measured.update(warp_kernel_phase(device, path_shapes(kitti)))
     measured.update(warp_jvp_kernel_phase(device))
+    if kernels_only:
+        print(json.dumps({"kernels_alone": measured}))
+        return 0
     _blocker.clear()                # the timing's 256 MiB matrix: not a part of any step's memory
     torch.cuda.empty_cache()
     nrs, real = slice_phase(device, cfg)
@@ -3497,6 +3625,14 @@ def main():
         # direct alignment; its launches are those of the --refine-direct run
         "warp_jvp": ("warp", "packnet_sfm_tpu/egomotion/alignment.py:65",
                      odometry["direct"]["launches"]),
+        # the transpose of the same gather, which JAX's autodiff gives as an
+        # XLA scatter-add: no train, eval or odometry path backpropagates into
+        # an image, so its launches are those of grid_sample's image
+        # gradient in phase 2 (path_launches; 0 in every phase after it)
+        "warp_bwd_image": ("warp", "docs/bench_pallas_gather_probe.py:102",
+                           measured["warp_bwd_image"]["path_launches"]),
+        "warp_bwd_image_bf16": ("warp", "docs/bench_pallas_gather_probe.py:102",
+                                measured["warp_bwd_image_bf16"]["path_launches"]),
         # the band forms of K6f/K6b: their launches are those of phase 12's
         # omnicam grid (rank 0, over its SPACE_KIND_STEPS steps)
         "softargmax_fwd_band": ("softargmax", "packnet_sfm_tpu/ops/pallas_softargmax.py:105",
@@ -3511,7 +3647,8 @@ def main():
                      replaces=replaces, launches=counts[name], max_abs_err=m["max_abs_err"],
                      ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                      bound_by=m["bound_by"], library_ms=m.get("library_ms"))
-        for extra in ("dtype", "by_shape", "by_case", "library_note", "case", "vs_whole"):
+        for extra in ("dtype", "by_shape", "by_case", "library_note", "case", "vs_whole",
+                      "bound_with_index_ms"):
             if extra in m:
                 entry[extra] = m[extra]
         if name in ("warp_fwd", "warp_bwd"):
@@ -3521,6 +3658,11 @@ def main():
                                 for key, launches in ((name, counts[name]),
                                                       (name + "_bf16",
                                                        kitti_counts[name + "_bf16"]))]
+        if name.startswith("warp_bwd_image"):
+            # none on the train steps of phases 3 and 4
+            entry["steps_launches"] = {
+                "nrs": nrs_counts[name], "flagship": kitti_counts[name],
+                "flagship_float32": kitti_steps["float32"]["launches"][name]}
         # the launches of the real-format runs of phase 7
         entry["data_launches"] = {run: data[run]["launches"][name]
                                   for run in ("kitti", "omnicam", "ddad", "ddad_two_cameras")}
@@ -3564,4 +3706,4 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--worker":
         sys.exit(dist_worker(sys.argv[2]))
-    sys.exit(main())
+    sys.exit(main(kernels_only=sys.argv[1:] == ["--kernels"]))

@@ -20,8 +20,9 @@
 // 'border': a tap's index is clamped into the image. The backward returns
 //   d cx = (W-1)/2 * sum_c g [(1-wy)(v01-v00) + wy (v11-v10)],
 //   d cy = (H-1)/2 * sum_c g [(bot - top)],
-// and, only if the caller wants it, d image, scattered with atomicAdd into a
-// zeroed buffer (so its summation order changes from run to run).
+// and warp_bwd_image, only if the caller wants it, d image: the transposed
+// warp, d image[q] = sum over the taps (p, k) that land on q of
+// g[p] w_k(p), summed in one fixed order with no float atomics (below).
 //
 // What bounds it on an H100. Bytes: per output pixel the forward must read 8
 // bytes of coordinates and write 4C of output, and each image byte once
@@ -53,8 +54,35 @@
 // The backward keeps its first design: one thread per output pixel reading
 // its four taps straight from the image. Nothing of the TPU formulation is
 // carried over: no padded 4-tap stack, no index array, no packing of lanes;
-// those answered a machine without a gather. A deterministic d image is
-// left for a later change.
+// those answered a machine without a gather.
+//
+// The image's gradient (warp_bwd_image). The JAX package gets it from
+// autodiff of its gather, an XLA scatter-add, whose sum has one order on
+// every run. A scatter with float atomics would sum in the order the threads
+// arrive, which changes from run to run, so this is a gather over a sorted
+// index instead. A tap's target depends on the coordinates only, not on the
+// channel, so one index serves all C channels:
+// - count: one thread per output pixel p adds 1 (an integer atomic, exact)
+//   to the count of each target pixel q of its at most four taps k: the taps
+//   inside the image under 'zeros', all four, clamped, under 'border' (where
+//   two taps of a pixel may land on one q; both are entries);
+// - the caller turns the counts into segment offsets (an exclusive scan of
+//   the int32 counts: index bookkeeping, no part of the arithmetic);
+// - place: each entry writes its key 4 p + k into its target's segment, at a
+//   slot taken with an integer atomic (so in no fixed order);
+// - sum: each segment is put in increasing key order and summed in that
+//   order, d image[q, ch] = fmaf(g[p, ch], w_k, ...) from 0 in float32, and
+//   written once (rounded once to bfloat16 for a bfloat16 image). A segment
+//   of at most SEG_SHORT entries (nearly all: about 4 where the warp is
+//   smooth) is sorted by one thread in registers; one of at most SEG_MID by a
+//   block in shared memory (a bitonic sort); a longer one (every sample
+//   clamped into one corner) by a block that walks the image's output pixels
+//   in order and keeps those that land on q, chunk by chunk. The three give
+//   the same sum in the same order, so d image's bits depend on neither the
+//   run nor the launch configuration.
+// It reads the coordinates (8 B a pixel) in three passes and the cotangent
+// (4C B) once, and writes d image once; its index moves some 40 B more a
+// pixel (counts, offsets, keys and their reads).
 //
 // The coordinate tangent (warp_jvp). The direct pose alignment of the
 // ego-motion path (packnet_sfm_tpu/egomotion/alignment.py) builds its
@@ -69,8 +97,9 @@
 // output pixel, C a template parameter (3 and 1, else a run-time loop), as
 // in warp_fwd. It reads the coordinates and their tangent (16 bytes) and
 // the four taps, and writes 4C bytes: 32 bytes a pixel for C = 3 where the
-// taps come from cache. The image is data on that path: there is no image
-// tangent, and the image is float32 (the frames are).
+// taps come from cache. It takes a float32 image: the wrapper widens a
+// bfloat16 one exactly. The warp is linear in the image, so an image's
+// tangent needs no kernel of its own: it is warp_fwd of the tangent.
 //
 // The bfloat16 image. The JAX package's bfloat16 policy warps a bfloat16
 // image at float32 coordinates and gets float32 back (its _lerp_taps
@@ -78,9 +107,11 @@
 // beside C: a bfloat16 tap is widened to float32 exactly (its 16 bits are
 // the top half of the float's) and every operation stays in float32, so the
 // variant computes the float32 kernel's function of the widened image,
-// reading 2 bytes a channel where that reads 4. Its backward gives d coords
-// only: nothing differentiates a bfloat16 image, and its launcher has no
-// d image argument.
+// reading 2 bytes a channel where that reads 4. d image does not read the
+// image: warp_bwd_image_bf16 differs from warp_bwd_image only in rounding
+// its float32 sum once to bfloat16 where it writes it.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,16 +238,14 @@ warp_fwd_kernel(const T* __restrict__ image,
   }
 }
 
-// d_image may be null: then only d_coords is written (always so for a
-// bfloat16 image).
+// d coords only; d image is warp_bwd_image's.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 warp_bwd_kernel(const T* __restrict__ image,
                 const float* __restrict__ coords,
                 const float* __restrict__ grad_out,
-                float* __restrict__ d_coords, float* __restrict__ d_image,
-                long long n_out, int per_image, int h, int w, int c,
-                int border) {
+                float* __restrict__ d_coords, long long n_out, int per_image,
+                int h, int w, int c, int border) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n_out) return;
   const int b = (int)(i / per_image);
@@ -228,9 +257,10 @@ warp_bwd_kernel(const T* __restrict__ image,
   const T* p10 = img + (size_t)t.o10 * c;
   const T* p11 = img + (size_t)t.o11 * c;
   const float* g = grad_out + (size_t)i * c;
-  const float w00 = (1.0f - t.wx) * (1.0f - t.wy), w01 = t.wx * (1.0f - t.wy);
-  const float w10 = (1.0f - t.wx) * t.wy, w11 = t.wx * t.wy;
   float dwx = 0.f, dwy = 0.f;
+  // kept rolled: unrolled, the float32 form took 62 registers and 0.0193 ms
+  // at [8,192,640,3] on an H100; rolled, 32 and 0.0151 (the same bits)
+#pragma unroll 1
   for (int ch = 0; ch < c; ++ch) {
     const float gc = g[ch];
     const float v00 = t.m00 != 0.f ? ld(p00 + ch) : 0.f;
@@ -241,16 +271,231 @@ warp_bwd_kernel(const T* __restrict__ image,
     const float bot = v10 * (1.0f - t.wx) + v11 * t.wx;
     dwx += gc * ((1.0f - t.wy) * (v01 - v00) + t.wy * (v11 - v10));
     dwy += gc * (bot - top);
-    if (d_image != nullptr) {
-      float* di = d_image + base;
-      if (t.m00 != 0.f) atomicAdd(di + (size_t)t.o00 * c + ch, gc * w00);
-      if (t.m01 != 0.f) atomicAdd(di + (size_t)t.o01 * c + ch, gc * w01);
-      if (t.m10 != 0.f) atomicAdd(di + (size_t)t.o10 * c + ch, gc * w10);
-      if (t.m11 != 0.f) atomicAdd(di + (size_t)t.o11 * c + ch, gc * w11);
-    }
   }
   d_coords[2 * i] = dwx * (0.5f * (float)(w - 1));
   d_coords[2 * i + 1] = dwy * (0.5f * (float)(h - 1));
+}
+
+// --- warp_bwd_image: the transposed warp, summed in key order -------------
+
+// Longest segment that one thread sorts in registers, and that one block
+// sorts in shared memory (a power of two).
+constexpr int SEG_SHORT = 32;
+constexpr int SEG_MID = 2048;
+// Blocks that walk the lists of longer segments (each takes whole segments).
+constexpr int LIST_BLOCKS = 264;
+
+// Tap k's target (a pixel offset within its image) and whether it counts.
+__device__ __forceinline__ bool tap_target(const Taps& t, int k, int* q) {
+  switch (k) {
+    case 0: *q = t.o00; return t.m00 != 0.f;
+    case 1: *q = t.o01; return t.m01 != 0.f;
+    case 2: *q = t.o10; return t.m10 != 0.f;
+    default: *q = t.o11; return t.m11 != 0.f;
+  }
+}
+
+// Tap k's bilinear weight, as warp_fwd weighs it.
+__device__ __forceinline__ float tap_weight(float wx, float wy, int k) {
+  switch (k) {
+    case 0: return (1.0f - wx) * (1.0f - wy);
+    case 1: return wx * (1.0f - wy);
+    case 2: return (1.0f - wx) * wy;
+    default: return wx * wy;
+  }
+}
+
+// The weight of the entry with key 4 p + k of image b.
+__device__ __forceinline__ float key_weight(const float* coords, int b, int per_image,
+                                            int key, int h, int w, int border) {
+  const float2 xy = __ldg(reinterpret_cast<const float2*>(coords) +
+                          (size_t)b * per_image + (key >> 2));
+  const Taps t = make_taps(xy.x, xy.y, h, w, border);
+  return tap_weight(t.wx, t.wy, key & 3);
+}
+
+template <typename TO> __device__ __forceinline__ TO to_out(float v);
+template <> __device__ __forceinline__ float to_out<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// counts[b h w]: the taps that land on each pixel.
+__global__ void __launch_bounds__(THREADS)
+image_grad_count_kernel(const float* __restrict__ coords, int* __restrict__ counts,
+                        long long n_out, int per_image, int h, int w, int border) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n_out) return;
+  const int b = (int)(i / per_image);
+  const Taps t = make_taps(coords[2 * i], coords[2 * i + 1], h, w, border);
+  int* cnt = counts + (size_t)b * h * w;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int q;
+    if (tap_target(t, k, &q)) atomicAdd(cnt + q, 1);
+  }
+}
+
+// keys[offsets[q] ..]: the keys 4 p + k of q's entries; fill[q] counts the
+// slots taken (zeroed by the caller).
+__global__ void __launch_bounds__(THREADS)
+image_grad_place_kernel(const float* __restrict__ coords, const int* __restrict__ offsets,
+                        int* __restrict__ fill, int* __restrict__ keys, long long n_out,
+                        int per_image, int h, int w, int border) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n_out) return;
+  const int b = (int)(i / per_image);
+  const int p = (int)(i - (long long)b * per_image);
+  const Taps t = make_taps(coords[2 * i], coords[2 * i + 1], h, w, border);
+  const int base = b * h * w;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int q;
+    if (tap_target(t, k, &q)) {
+      const int slot = atomicAdd(fill + base + q, 1);
+      keys[offsets[base + q] + slot] = 4 * p + k;
+    }
+  }
+}
+
+// One thread per target pixel: a segment of at most SEG_SHORT entries is
+// sorted and summed here; a longer one goes on list 0 (at most SEG_MID) or
+// list 1, whose lengths are lists[0] and lists[1] and whose entries follow
+// from lists + 2 and lists + 2 + n_targets.
+template <typename TO>
+__global__ void __launch_bounds__(THREADS)
+image_grad_short_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
+                        const int* __restrict__ offsets, const int* __restrict__ keys,
+                        int* __restrict__ lists, TO* __restrict__ d_image, int n_targets,
+                        int per_image, int h, int w, int c, int border) {
+  const int q = blockIdx.x * THREADS + threadIdx.x;
+  if (q >= n_targets) return;
+  const int lo = offsets[q], n = offsets[q + 1] - lo;
+  if (n > SEG_SHORT) {
+    const int list = n > SEG_MID ? 1 : 0;
+    lists[2 + list * n_targets + atomicAdd(lists + list, 1)] = q;
+    return;
+  }
+  int ks[SEG_SHORT];
+  float ws[SEG_SHORT];
+  for (int j = 0; j < n; ++j) {      // insertion sort
+    const int key = keys[lo + j];
+    int at = j;
+    for (; at > 0 && ks[at - 1] > key; --at) ks[at] = ks[at - 1];
+    ks[at] = key;
+  }
+  const int b = q / (h * w);
+  for (int j = 0; j < n; ++j) ws[j] = key_weight(coords, b, per_image, ks[j], h, w, border);
+  const float* g = grad_out + (size_t)b * per_image * c;
+  for (int ch = 0; ch < c; ++ch) {
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j) acc = fmaf(g[(size_t)(ks[j] >> 2) * c + ch], ws[j], acc);
+    d_image[(size_t)q * c + ch] = to_out<TO>(acc);
+  }
+}
+
+// List 0: a block a segment, its keys sorted in shared memory.
+template <typename TO>
+__global__ void __launch_bounds__(THREADS)
+image_grad_mid_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
+                      const int* __restrict__ offsets, const int* __restrict__ keys,
+                      const int* __restrict__ lists, TO* __restrict__ d_image, int n_targets,
+                      int per_image, int h, int w, int c, int border) {
+  __shared__ int ks[SEG_MID];
+  __shared__ float ws[SEG_MID];
+  const int n_list = lists[0];
+  for (int s = blockIdx.x; s < n_list; s += gridDim.x) {
+    const int q = lists[2 + s];
+    const int lo = offsets[q], n = offsets[q + 1] - lo;
+    int n2 = SEG_SHORT;
+    while (n2 < n) n2 <<= 1;
+    for (int j = threadIdx.x; j < n2; j += THREADS) ks[j] = j < n ? keys[lo + j] : INT_MAX;
+    __syncthreads();
+    for (int size = 2; size <= n2; size <<= 1) {         // bitonic sort, ascending
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int j = threadIdx.x; j < n2; j += THREADS) {
+          const int other = j ^ stride;
+          if (other > j) {
+            const int a = ks[j], z = ks[other];
+            if ((a > z) == ((j & size) == 0)) {
+              ks[j] = z;
+              ks[other] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    const int b = q / (h * w);
+    for (int j = threadIdx.x; j < n; j += THREADS)
+      ws[j] = key_weight(coords, b, per_image, ks[j], h, w, border);
+    __syncthreads();
+    const float* g = grad_out + (size_t)b * per_image * c;
+    for (int ch = threadIdx.x; ch < c; ch += THREADS) {
+      float acc = 0.f;
+      for (int j = 0; j < n; ++j) acc = fmaf(g[(size_t)(ks[j] >> 2) * c + ch], ws[j], acc);
+      d_image[(size_t)q * c + ch] = to_out<TO>(acc);
+    }
+    __syncthreads();
+  }
+}
+
+// List 1: a block a segment. The block walks the image's output pixels in
+// order, THREADS at a time, and keeps the entries that land on q in key
+// order (an exclusive scan of each pixel's count); the channels' threads sum
+// each chunk's entries after those of the chunks before it. Channels beyond
+// THREADS take further walks.
+template <typename TO>
+__global__ void __launch_bounds__(THREADS)
+image_grad_long_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
+                       const int* __restrict__ lists, TO* __restrict__ d_image, int n_targets,
+                       int per_image, int h, int w, int c, int border) {
+  __shared__ int pos[THREADS];
+  __shared__ int ek[4 * THREADS];
+  __shared__ float ew[4 * THREADS];
+  const int n_list = lists[1];
+  for (int s = blockIdx.x; s < n_list; s += gridDim.x) {
+    const int q = lists[2 + n_targets + s];
+    const int b = q / (h * w), local = q - b * (h * w);
+    const float2* crd = reinterpret_cast<const float2*>(coords) + (size_t)b * per_image;
+    const float* g = grad_out + (size_t)b * per_image * c;
+    for (int c0 = 0; c0 < c; c0 += THREADS) {
+      const int ch = c0 + threadIdx.x;
+      float acc = 0.f;
+      for (int p0 = 0; p0 < per_image; p0 += THREADS) {
+        const int p = p0 + threadIdx.x;
+        const bool live = p < per_image;
+        const float2 xy = live ? __ldg(crd + p) : make_float2(0.f, 0.f);
+        const Taps t = make_taps(xy.x, xy.y, h, w, border);
+        int hits[4], n_hit = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          int target;
+          if (live && tap_target(t, k, &target) && target == local) hits[n_hit++] = k;
+        }
+        pos[threadIdx.x] = n_hit;
+        __syncthreads();
+        for (int stride = 1; stride < THREADS; stride <<= 1) {   // inclusive scan
+          const int add = (int)threadIdx.x >= stride ? pos[threadIdx.x - stride] : 0;
+          __syncthreads();
+          pos[threadIdx.x] += add;
+          __syncthreads();
+        }
+        const int total = pos[THREADS - 1];
+        const int first = pos[threadIdx.x] - n_hit;
+        for (int j = 0; j < n_hit; ++j) {
+          ek[first + j] = 4 * p + hits[j];
+          ew[first + j] = tap_weight(t.wx, t.wy, hits[j]);
+        }
+        __syncthreads();
+        if (ch < c)
+          for (int j = 0; j < total; ++j)
+            acc = fmaf(g[(size_t)(ek[j] >> 2) * c + ch], ew[j], acc);
+        __syncthreads();
+      }
+      if (ch < c) d_image[(size_t)q * c + ch] = to_out<TO>(acc);
+    }
+  }
 }
 
 template <int C>
@@ -325,16 +570,46 @@ int launch_fwd(const T* image, const float* coords, float* out, int b, int h,
 
 template <typename T>
 int launch_bwd(const T* image, const float* coords, const float* grad_out,
-               float* d_coords, float* d_image, int b, int h, int w, int c,
-               int ho, int wo, int padding, void* stream) {
+               float* d_coords, int b, int h, int w, int c, int ho, int wo,
+               int padding, void* stream) {
   if (bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)b * ho * wo;
   if (n == 0) return 0;
   if (blocks_for(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   warp_bwd_kernel<T><<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      image, coords, grad_out, d_coords, d_image, n, ho * wo, h, w, c,
-      padding);
+      image, coords, grad_out, d_coords, n, ho * wo, h, w, c, padding);
+  return (int)cudaGetLastError();
+}
+
+// Offsets into the key array and target pixels are ints: at most INT_MAX
+// entries (four a pixel) and INT_MAX - 1 pixels.
+bool bad_image_grad(int b, int h, int w, int c, int ho, int wo, int padding) {
+  return bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1) ||
+         4LL * b * ho * wo > INT_MAX || (long long)b * h * w >= INT_MAX;
+}
+
+template <typename TO>
+int launch_image_grad(const float* coords, const float* grad_out, const int* offsets,
+                      int* fill, int* keys, int* lists, TO* d_image, int b, int h, int w,
+                      int c, int ho, int wo, int padding, void* stream) {
+  if (bad_image_grad(b, h, w, c, ho, wo, padding)) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)b * ho * wo;
+  const int n_targets = b * h * w;
+  if (n_targets == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0) {
+    image_grad_place_kernel<<<(unsigned)blocks_for(n), THREADS, 0, st>>>(
+        coords, offsets, fill, keys, n, ho * wo, h, w, padding);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  image_grad_short_kernel<TO><<<(unsigned)blocks_for(n_targets), THREADS, 0, st>>>(
+      coords, grad_out, offsets, keys, lists, d_image, n_targets, ho * wo, h, w, c, padding);
+  image_grad_mid_kernel<TO><<<LIST_BLOCKS, THREADS, 0, st>>>(
+      coords, grad_out, offsets, keys, lists, d_image, n_targets, ho * wo, h, w, c, padding);
+  image_grad_long_kernel<TO><<<LIST_BLOCKS, THREADS, 0, st>>>(
+      coords, grad_out, lists, d_image, n_targets, ho * wo, h, w, c, padding);
   return (int)cudaGetLastError();
 }
 
@@ -367,10 +642,9 @@ int launch_jvp(const float* image, const float* coords, const float* tangent,
 }  // namespace
 
 // All tensors are contiguous on the device. image [b, h, w, c]: float32, or
-// bfloat16 for the _bf16 launchers; d_image [b, h, w, c] float32; coords
-// and d_coords [b, ho, wo, 2], out and grad_out [b, ho, wo, c], float32.
-// padding: 0 zeros, 1 border. d_image is null or zeroed. All launch on
-// `stream` and return cudaGetLastError() (0 on success).
+// bfloat16 for the _bf16 launchers; coords and d_coords [b, ho, wo, 2], out
+// and grad_out [b, ho, wo, c], float32. padding: 0 zeros, 1 border. All
+// launch on `stream` and return cudaGetLastError() (0 on success).
 
 extern "C" int warp_fwd(const float* image, const float* coords, float* out,
                         int b, int h, int w, int c, int ho, int wo,
@@ -379,11 +653,11 @@ extern "C" int warp_fwd(const float* image, const float* coords, float* out,
 }
 
 extern "C" int warp_bwd(const float* image, const float* coords,
-                        const float* grad_out, float* d_coords,
-                        float* d_image, int b, int h, int w, int c, int ho,
-                        int wo, int padding, void* stream) {
-  return launch_bwd(image, coords, grad_out, d_coords, d_image, b, h, w, c,
-                    ho, wo, padding, stream);
+                        const float* grad_out, float* d_coords, int b, int h,
+                        int w, int c, int ho, int wo, int padding,
+                        void* stream) {
+  return launch_bwd(image, coords, grad_out, d_coords, b, h, w, c, ho, wo,
+                    padding, stream);
 }
 
 extern "C" int warp_fwd_bf16(const void* image, const float* coords,
@@ -398,8 +672,42 @@ extern "C" int warp_bwd_bf16(const void* image, const float* coords,
                              int h, int w, int c, int ho, int wo, int padding,
                              void* stream) {
   return launch_bwd(static_cast<const __nv_bfloat16*>(image), coords,
-                    grad_out, d_coords, static_cast<float*>(nullptr), b, h, w,
-                    c, ho, wo, padding, stream);
+                    grad_out, d_coords, b, h, w, c, ho, wo, padding, stream);
+}
+
+// d image of an image [b, h, w, c], in two calls around the caller's scan.
+// warp_bwd_image_count adds each tap's 1 to counts [b h w] (int32, zeroed).
+// warp_bwd_image takes offsets [b h w + 1], the exclusive scan of those
+// counts, and scratch: fill [b h w] (int32, zeroed), keys [4 b ho wo] and
+// lists [2 + 2 b h w] (int32, the first two zeroed). d_image is float32, or
+// bfloat16 for warp_bwd_image_bf16; every element of it is written.
+extern "C" int warp_bwd_image_count(const float* coords, int* counts, int b, int h,
+                                    int w, int ho, int wo, int padding,
+                                    void* stream) {
+  if (bad_image_grad(b, h, w, 1, ho, wo, padding)) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)b * ho * wo;
+  if (n == 0) return 0;
+  image_grad_count_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+      coords, counts, n, ho * wo, h, w, padding);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int warp_bwd_image(const float* coords, const float* grad_out,
+                              const int* offsets, int* fill, int* keys, int* lists,
+                              float* d_image, int b, int h, int w, int c, int ho,
+                              int wo, int padding, void* stream) {
+  return launch_image_grad(coords, grad_out, offsets, fill, keys, lists, d_image, b,
+                           h, w, c, ho, wo, padding, stream);
+}
+
+extern "C" int warp_bwd_image_bf16(const float* coords, const float* grad_out,
+                                   const int* offsets, int* fill, int* keys,
+                                   int* lists, void* d_image, int b, int h, int w,
+                                   int c, int ho, int wo, int padding,
+                                   void* stream) {
+  return launch_image_grad(coords, grad_out, offsets, fill, keys, lists,
+                           static_cast<__nv_bfloat16*>(d_image), b, h, w, c, ho,
+                           wo, padding, stream);
 }
 
 // coords_tangent [b, ho, wo, 2] and out [b, ho, wo, c], float32: the

@@ -54,3 +54,8 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply [B, 4, 4] SE(3) to [B, H, W, 3] points (NHWC layout)."""
     out = torch.einsum("bij,bhwj->bhwi", T[:, :3, :3], points)
     return out + T[:, None, None, :3, 3]
+
+
+def identity_pose(batch: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[B, 4, 4] identity transforms (an expanded view of one identity)."""
+    return torch.eye(4, dtype=dtype, device=device).expand(batch, 4, 4)

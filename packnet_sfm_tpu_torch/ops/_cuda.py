@@ -36,9 +36,12 @@ SIGNATURES = {
     },
     "warp": {
         "warp_fwd": [_P] * 3 + [_I] * 7 + [_P],
-        "warp_bwd": [_P] * 5 + [_I] * 7 + [_P],
+        "warp_bwd": [_P] * 4 + [_I] * 7 + [_P],
         "warp_fwd_bf16": [_P] * 3 + [_I] * 7 + [_P],
         "warp_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P],
+        "warp_bwd_image_count": [_P] * 2 + [_I] * 6 + [_P],
+        "warp_bwd_image": [_P] * 7 + [_I] * 7 + [_P],
+        "warp_bwd_image_bf16": [_P] * 7 + [_I] * 7 + [_P],
         "warp_jvp": [_P] * 4 + [_I] * 7 + [_P],
         "launch_floor": [_P],
     },

@@ -13,25 +13,32 @@ tap's index is clamped into the image).
 - ``grid_sample_plain``: plain PyTorch (floor, four index gathers, masks,
   lerp), differentiated by autograd in either mode. The CPU tests and
   ``chip_smoke.py`` hold the kernels to it.
+- The backward: d coords through ``warp_bwd``, d image (only where the
+  image requires a gradient; the losses warp data) through
+  ``warp_bwd_image``, the transposed warp summed in one fixed order, so
+  that the same inputs give the same bits on every run, as the JAX
+  package's scatter-add does.
 - Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``): on CUDA
   the coordinates' tangent goes through ``warp_jvp`` (the direct pose
-  alignment's Jacobian columns); the kernel takes a float32 image, and an
-  image tangent raises, since the image is data on that path (ROADMAP.md
-  §3 (f)). On the CPU, ``grid_sample_plain`` under forward AD is
-  ``warp_jvp``'s plain version.
+  alignment's Jacobian columns) and the image's through ``warp_fwd`` (the
+  warp is linear in the image); with both, the two are added. On the CPU,
+  ``grid_sample_plain`` under forward AD is their plain version.
 - ``launch_counts``: launches of each kernel, counted where the wrapper
   launches it, so a run can show that its path went through the kernels;
   ``bf16_launch_counts`` those of the bfloat16-image variants
-  (``warp_fwd_bf16``/``warp_bwd_bf16``), which ``launch_counts`` leaves
-  out.
+  (``warp_fwd_bf16``/``warp_bwd_bf16``/``warp_bwd_image_bf16``), which
+  ``launch_counts`` leaves out.
 
 The kernels compute in float32. A bfloat16 image at float32 coordinates
 (what the bfloat16 policy's losses warp) goes to the bfloat16-image variants
-as it is, with no float32 copy; every other pair of dtypes is cast to
-float32 first. On both devices the result comes back in the dtype that the
-image's and the coordinates' promote to, and the gradient with respect to
-the coordinates in the coordinates' dtype. The variants give no gradient to
-the image: asked for one, the backward raises.
+as it is, with no float32 copy, and on the CPU to the plain version of the
+image widened to float32 (the same function: the widening is exact); every
+other pair of dtypes is cast to float32 first. On both devices the result
+comes back in the dtype that the image's and the coordinates' promote to,
+and each gradient or tangent in its input's dtype. A bfloat16 image's
+gradient is JAX's float32 one on the widened image, rounded once; JAX's own
+bfloat16 warp gives the image a zero gradient and tangent in 'zeros'
+padding (ROADMAP.md §3 (w)), which the port does not copy.
 """
 
 from __future__ import annotations
@@ -39,8 +46,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-launch_counts = {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
-bf16_launch_counts = {"warp_fwd_bf16": 0, "warp_bwd_bf16": 0}
+launch_counts = {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0, "warp_bwd_image": 0}
+bf16_launch_counts = {"warp_fwd_bf16": 0, "warp_bwd_bf16": 0, "warp_bwd_image_bf16": 0}
 
 PADDING_MODES = {"zeros": 0, "border": 1}
 
@@ -69,9 +76,13 @@ def _check_shapes(image: torch.Tensor, coords: torch.Tensor) -> None:
 IMAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _kernel(name: str, image: torch.Tensor) -> str:
-    """The launcher of ``name`` for the image's dtype."""
-    return name + "_bf16" if image.dtype == torch.bfloat16 else name
+def _kernel(name: str, dtype: torch.dtype) -> str:
+    """The launcher of ``name`` for an image of ``dtype``."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
+
+
+def _count(name: str) -> None:
+    (bf16_launch_counts if name.endswith("_bf16") else launch_counts)[name] += 1
 
 
 def warp_fwd_cuda(image: torch.Tensor, coords: torch.Tensor,
@@ -86,23 +97,25 @@ def warp_fwd_cuda(image: torch.Tensor, coords: torch.Tensor,
     _, ho, wo, _ = coords.shape
     _cuda.check_tensor("image", image, (b, h, w, c), IMAGE_DTYPES)
     _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
-    name = _kernel("warp_fwd", image)
+    name = _kernel("warp_fwd", image.dtype)
     launcher = getattr(_cuda.load("warp"), name)
     out = torch.empty((b, ho, wo, c), dtype=torch.float32, device=image.device)
+    ptrs = [_with_storage(t).data_ptr() for t in (image, coords, out)]
     with torch.cuda.device(image.device):
-        err = launcher(image.data_ptr(), coords.data_ptr(), out.data_ptr(),
-                       b, h, w, c, ho, wo, padding, _cuda.stream(image))
+        err = launcher(*ptrs, b, h, w, c, ho, wo, padding, _cuda.stream(image))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    (bf16_launch_counts if name.endswith("_bf16") else launch_counts)[name] += 1
+    _count(name)
     return out
 
 
 def warp_bwd_cuda(image: torch.Tensor, coords: torch.Tensor, grad_out: torch.Tensor,
-                  padding_mode: str = "zeros", need_image_grad: bool = False):
-    """Backward kernel: returns (d image or None, d coords). d image is
-    summed with atomics into a zeroed buffer, only when asked for, and only
-    for a float32 image: for a bfloat16 one it raises."""
+                  padding_mode: str = "zeros", need_image_grad: bool = False,
+                  need_coords_grad: bool = True):
+    """Backward kernels: returns (d image or None, d coords or None), each
+    only when asked for: d coords from ``warp_bwd`` (``warp_bwd_bf16`` for a
+    bfloat16 image), d image from ``warp_bwd_image_cuda`` in the image's
+    dtype."""
     from packnet_sfm_tpu_torch.ops import _cuda
 
     padding = _padding_code(padding_mode)
@@ -112,22 +125,68 @@ def warp_bwd_cuda(image: torch.Tensor, coords: torch.Tensor, grad_out: torch.Ten
     _cuda.check_tensor("image", image, (b, h, w, c), IMAGE_DTYPES)
     _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
     _cuda.check_tensor("grad_out", grad_out, (b, ho, wo, c))
-    name = _kernel("warp_bwd", image)
-    if need_image_grad and image.dtype != torch.float32:
-        raise ValueError(f"{name} gives no gradient to a {image.dtype} image; "
-                         "warp a float32 image where it needs one")
-    launcher = getattr(_cuda.load("warp"), name)
-    d_coords = torch.empty_like(coords)
-    d_image = torch.zeros_like(image) if need_image_grad else None
-    image_grad = [d_image.data_ptr() if need_image_grad else None]
-    with torch.cuda.device(image.device):
-        err = launcher(image.data_ptr(), coords.data_ptr(), grad_out.data_ptr(),
-                       d_coords.data_ptr(), *(image_grad if name == "warp_bwd" else []),
-                       b, h, w, c, ho, wo, padding, _cuda.stream(image))
+    d_coords = None
+    if need_coords_grad:
+        name = _kernel("warp_bwd", image.dtype)
+        launcher = getattr(_cuda.load("warp"), name)
+        d_coords = torch.empty_like(coords)
+        with torch.cuda.device(image.device):
+            err = launcher(image.data_ptr(), coords.data_ptr(), grad_out.data_ptr(),
+                           d_coords.data_ptr(), b, h, w, c, ho, wo, padding,
+                           _cuda.stream(image))
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {err}")
+        _count(name)
+    d_image = (warp_bwd_image_cuda(coords, grad_out, (h, w), image.dtype, padding_mode)
+               if need_image_grad else None)
+    return d_image, d_coords
+
+
+def warp_bwd_image_cuda(coords: torch.Tensor, grad_out: torch.Tensor, image_hw,
+                        dtype: torch.dtype = torch.float32,
+                        padding_mode: str = "zeros") -> torch.Tensor:
+    """d image [B,H,W,C] of the warp of an image of ``image_hw`` = (H, W) at
+    ``coords`` [B,H',W',2] under the cotangent ``grad_out`` [B,H',W',C]
+    (both float32), in ``dtype`` (float32, or bfloat16 rounded once from
+    the float32 sum): ``warp_bwd_image`` (``_bf16``), whose sums have one
+    order on every run. The exclusive scan of the per-pixel tap counts
+    between its two calls is index bookkeeping, exact in int32."""
+    from packnet_sfm_tpu_torch.ops import _cuda
+
+    padding = _padding_code(padding_mode)
+    h, w = image_hw
+    b, ho, wo, c = grad_out.shape
+    if dtype not in IMAGE_DTYPES or min(b, h, w, c, ho, wo) < 1:
+        raise ValueError(f"no image gradient of dtype {dtype} and shape {(b, h, w, c)}")
+    _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
+    _cuda.check_tensor("grad_out", grad_out, (b, ho, wo, c))
+    if 4 * b * ho * wo > 2 ** 31 - 1 or b * h * w >= 2 ** 31 - 1:
+        raise ValueError(f"warp_bwd_image indexes its {4 * b * ho * wo} taps and "
+                         f"{b * h * w} pixels with int32")
+    lib = _cuda.load("warp")
+    name = _kernel("warp_bwd_image", dtype)
+    device, n_targets = coords.device, b * h * w
+    counts = torch.zeros(n_targets, dtype=torch.int32, device=device)
+    offsets = torch.zeros(n_targets + 1, dtype=torch.int32, device=device)
+    keys = torch.empty(4 * b * ho * wo, dtype=torch.int32, device=device)
+    lists = torch.empty(2 + 2 * n_targets, dtype=torch.int32, device=device)
+    d_image = torch.empty((b, h, w, c), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        stream = _cuda.stream(coords)
+        err = lib.warp_bwd_image_count(coords.data_ptr(), counts.data_ptr(), b, h, w, ho, wo,
+                                       padding, stream)
+        if err == 0:
+            torch.cumsum(counts, 0, dtype=torch.int32, out=offsets[1:])
+            counts.zero_()
+            lists[:2].zero_()
+            err = getattr(lib, name)(coords.data_ptr(), grad_out.data_ptr(),
+                                     offsets.data_ptr(), counts.data_ptr(), keys.data_ptr(),
+                                     lists.data_ptr(), d_image.data_ptr(), b, h, w, c, ho,
+                                     wo, padding, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    (bf16_launch_counts if name.endswith("_bf16") else launch_counts)[name] += 1
-    return d_image, d_coords
+    _count(name)
+    return d_image
 
 
 def _with_storage(t: torch.Tensor) -> torch.Tensor:
@@ -163,15 +222,17 @@ def warp_jvp_cuda(image: torch.Tensor, coords: torch.Tensor, coords_tangent: tor
         err = launcher(*ptrs, b, h, w, c, ho, wo, padding, _cuda.stream(image))
     if err != 0:
         raise RuntimeError(f"warp_jvp launch failed: cudaError {err}")
-    launch_counts["warp_jvp"] += 1
+    _count("warp_jvp")
     return out
 
 
 class _WarpCuda(torch.autograd.Function):
     """The kernels as one differentiable function of (image, coords):
-    ``backward`` through ``warp_bwd``, ``jvp`` (forward mode) through
-    ``warp_jvp``. In the ``setup_context`` form, so that ``torch.func``
-    transforms take it as well as ``torch.autograd``."""
+    ``backward`` through ``warp_bwd`` (d coords) and ``warp_bwd_image``
+    (d image), ``jvp`` (forward mode) through ``warp_jvp`` (the
+    coordinates' tangent) and ``warp_fwd`` (the image's). In the
+    ``setup_context`` form, so that ``torch.func`` transforms take it as
+    well as ``torch.autograd``."""
 
     @staticmethod
     def forward(image, coords, padding_mode):
@@ -195,18 +256,21 @@ class _WarpCuda(torch.autograd.Function):
         image, coords = ctx.saved_tensors
         d_image, d_coords = warp_bwd_cuda(
             image, coords, grad_out.float().contiguous(), ctx.padding_mode,
-            need_image_grad=ctx.needs_input_grad[0])
-        return d_image, (d_coords if ctx.needs_input_grad[1] else None), None
+            need_image_grad=ctx.needs_input_grad[0], need_coords_grad=ctx.needs_input_grad[1])
+        return d_image, d_coords, None
 
     @staticmethod
     def jvp(ctx, image_t, coords_t, _):
         image, coords = ctx.saved_tensors
+        out_t = None
         if image_t is not None:
-            raise ValueError("the warp kernels take no image tangent: the image is data "
-                             "on the forward-mode path; detach it (grid_sample_data)")
-        if image.dtype != torch.float32:
-            raise ValueError(f"warp_jvp takes a float32 image, got {image.dtype}")
-        return warp_jvp_cuda(image, coords, coords_t.float().contiguous(), ctx.padding_mode)
+            out_t = warp_fwd_cuda(image_t.contiguous(), coords, ctx.padding_mode)
+        if coords_t is not None:
+            # a bfloat16 image widens to float32 exactly: JAX's tangent is this
+            part = warp_jvp_cuda(image.float(), coords, coords_t.float().contiguous(),
+                                 ctx.padding_mode)
+            out_t = part if out_t is None else out_t + part
+        return out_t
 
 
 def grid_sample(image: torch.Tensor, coords: torch.Tensor,
@@ -217,21 +281,20 @@ def grid_sample(image: torch.Tensor, coords: torch.Tensor,
     through the kernels (in float32, cast back to the inputs' promoted dtype
     outside the autograd function; a bfloat16 image at float32 coordinates
     through the bfloat16-image variants, uncast), CPU tensors through
-    ``grid_sample_plain``.
+    ``grid_sample_plain`` (a bfloat16 image at float32 coordinates widened
+    to float32, so that its gradient is summed in float32 as on the card).
     """
     _padding_code(padding_mode)
     _check_shapes(image, coords)
+    bf16_image = image.dtype == torch.bfloat16 and coords.dtype == torch.float32
     if image.is_cuda and coords.is_cuda:
         out_dtype = torch.promote_types(image.dtype, coords.dtype)
-        if not (image.dtype == torch.bfloat16 and coords.dtype == torch.float32):
+        if not bf16_image:
             image = image.float()
-        elif image.requires_grad and torch.is_grad_enabled():
-            raise ValueError("the bfloat16-image warp gives no gradient to the image; "
-                             "detach it (grid_sample_data) or warp it in float32")
         out = _WarpCuda.apply(image.contiguous(), coords.float().contiguous(), padding_mode)
         return out.to(out_dtype)
     if image.device.type == "cpu" and coords.device.type == "cpu":
-        return grid_sample_plain(image, coords, padding_mode)
+        return grid_sample_plain(image.float() if bf16_image else image, coords, padding_mode)
     raise ValueError(f"grid_sample has no path for devices {image.device} and {coords.device}")
 
 

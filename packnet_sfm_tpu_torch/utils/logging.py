@@ -1,7 +1,9 @@
-"""Console logging helpers: the port's own copy of ``pcolor`` and
-``print_config`` from ``packnet_sfm_tpu/utils/logging.py``."""
+"""Console logging helpers: the port's own copy of ``pcolor``, ``AvgMeter``
+and ``print_config`` from ``packnet_sfm_tpu/utils/logging.py``."""
 
 from __future__ import annotations
+
+from collections import deque
 
 
 def pcolor(text: str, color: str = "cyan", attrs=None) -> str:
@@ -13,6 +15,28 @@ def pcolor(text: str, color: str = "cyan", attrs=None) -> str:
     for a in (attrs or []):
         seq.append(str(attr_codes.get(a, 0)))
     return f"\033[{';'.join(seq)}m{text}\033[0m"
+
+
+class AvgMeter:
+    """The average of the last ``n_max`` values given."""
+
+    def __init__(self, n_max: int = 100):
+        self.values = deque(maxlen=n_max)
+
+    def __call__(self, value: float) -> float:
+        self.values.append(float(value))
+        return self.get()
+
+    def get(self) -> float:
+        return sum(self.values) / max(len(self.values), 1)
+
+    def reset(self):
+        self.values.clear()
+
+    def get_and_reset(self) -> float:
+        v = self.get()
+        self.reset()
+        return v
 
 
 def print_config(config, prefix: str = "config") -> None:

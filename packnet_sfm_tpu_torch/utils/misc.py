@@ -1,15 +1,35 @@
-"""Small helpers: the port's own copies of ``filter_dict`` and
-``parse_crop_borders`` from ``packnet_sfm_tpu/utils/misc.py`` (same results
-for the same arguments)."""
+"""Small helpers: the port's own copies of ``make_list``, ``filter_dict``,
+``same_shape`` and ``parse_crop_borders`` from
+``packnet_sfm_tpu/utils/misc.py`` (same results for the same arguments)."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Sequence
+
+
+def make_list(x: Any, n: int | None = None) -> list:
+    """``x`` as a list, broadcast to length ``n`` where given: a list or
+    tuple passes through (one element is repeated ``n`` times, another
+    length than ``n`` raises); anything else is repeated ``n`` times (once
+    without ``n``)."""
+    if isinstance(x, (list, tuple)):
+        x = list(x)
+        if n is not None and len(x) == 1:
+            return x * n
+        if n is not None and len(x) != n:
+            raise ValueError(f"list length {len(x)} != requested {n}")
+        return x
+    return [x] * (n if n is not None else 1)
 
 
 def filter_dict(d: dict, keys: Sequence[str]) -> list:
     """The subset of ``keys`` present in ``d``."""
     return [k for k in keys if k in d]
+
+
+def same_shape(a: Sequence[int], b: Sequence[int]) -> bool:
+    """True if two shapes have the same length and entries."""
+    return len(a) == len(b) and all(x == y for x, y in zip(a, b))
 
 
 def parse_crop_borders(borders: Sequence, shape: Sequence[int]) -> tuple:

@@ -28,6 +28,8 @@ bfloat16 input (flax promotes it against the float32 weights).
   the source positions) is bit for bit JAX's.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,8 +213,9 @@ def test_output_dtypes_match_jax(name, input_dtype, module_dtype):
         args_j, args_t = (jx,), (tx.permute(0, 3, 1, 2),)
     module = jmod(JDT[module_dtype])
     kw = {"train": False} if kind in ("pose", "depth") else {}
-    variables = module.init(jax.random.PRNGKey(0), *args_j, **kw)
-    want = _dtypes_of(module.apply(variables, *args_j, **kw))
+    # the dtypes JAX gives, traced without compiling or computing anything
+    variables = jax.eval_shape(partial(module.init, **kw), jax.random.PRNGKey(0), *args_j)
+    want = _dtypes_of(jax.eval_shape(partial(module.apply, **kw), variables, *args_j))
     port = tmod(module_dtype)
     port.eval()
     with torch.no_grad():

@@ -52,6 +52,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from packnet_sfm_tpu.core.config import get_default_config as jax_default_config
 from packnet_sfm_tpu.core.config import merge_config as jax_merge_config
@@ -101,8 +102,16 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda v: np.array(v, copy=True), tree)
 
 
+def _committed(tree, mesh):
+    """``tree`` committed to ``mesh``, as JAX's step returns its state and
+    metrics: from uncommitted ones its first call would compile a second
+    program (the same numbers)."""
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
 def _flat(state: dict, keys) -> np.ndarray:
-    return np.concatenate([np.asarray(state[k], np.float64).ravel() for k in keys])
+    # concatenated in float32 by torch, then widened: ten times numpy's per-key widening
+    return torch.cat([torch.as_tensor(state[k]).reshape(-1) for k in keys]).double().numpy()
 
 
 def _cos(a, b):
@@ -223,10 +232,10 @@ def _jax_steps(kind, jmodel, variables, batches, jcfg, jax_optimizer, progress):
         variables["params"], jax.tree_util.tree_map(jnp.asarray, batches[0]))))
     tx = jax_optimizer(jcfg)
     mesh = make_mesh(num_devices=1)
-    state = TrainState.create(variables, tx)
+    state = _committed(TrainState.create(variables, tx), mesh)
     step = jax_make_train_step(jmodel, tx, mesh, num_scales=4 if kind == "flagship" else None,
                                compute_dtype=jnp.bfloat16)
-    acc = jax_zero_metrics()
+    acc = _committed(jax_zero_metrics(), mesh)
     j_losses, j_params, prev = [], [], 0.0
     for b in batches:
         state, acc = step(state, acc, shard_batch(b, mesh), progress=progress)

@@ -1,5 +1,5 @@
-"""CUDA kernels K6f/K6b (csrc/softargmax.cu) and warp_fwd/warp_bwd/warp_jvp
-(csrc/warp.cu) against their plain PyTorch versions, on the card. Skipped
+"""CUDA kernels K6f/K6b (csrc/softargmax.cu) and warp_fwd/warp_bwd/warp_jvp/
+warp_bwd_image (csrc/warp.cu) against their plain PyTorch versions, on the card. Skipped
 where there is no CUDA device; run there with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -28,9 +28,11 @@ grid of another size than the image, coordinates that leave the image on
 every side, exact integer positions and the corners -1/+1. Tolerances:
 values 1e-5 (images in [0, 1); only fused multiply-adds round differently);
 gradients 1e-4 of their largest magnitude (d coords sums the channels in
-another order; d image is summed with atomics). warp_jvp, the coordinate
-tangent, on the same cases against the plain warp under forward AD:
-1e-4 of the tangent's largest magnitude.
+another order; warp_bwd_image sums each pixel's taps in key order, one
+order on every call, which a second call must repeat bit for bit).
+warp_jvp, the coordinate tangent, on the same cases against the plain warp
+under forward AD: 1e-4 of the tangent's largest magnitude, alone and with
+an image tangent beside it (warp_fwd of the tangent).
 
 The eval step (PackNetSlim01-1A, random weights) on the card against the
 CPU, same weights and batch, at 64x96 with the ground truth at 75x124 and
@@ -47,8 +49,8 @@ quantization), as the CPU's kernel is on a contiguous input
 
 The bfloat16-image warp variants against the plain version on the widened
 image (the same function: a bfloat16 tap widens to float32 exactly), on
-the float32 cases above, both paddings: the same tolerances; they refuse
-a gradient for the image. FastGroupNorm in bfloat16 compute on the card
+the float32 cases above, both paddings: the same tolerances; the image's
+gradient is the float32 kernel's rounded once to bfloat16. FastGroupNorm in bfloat16 compute on the card
 against the CPU on the same bfloat16 input bits: within one bfloat16
 spacing of the output (both compute float32 statistics and round once).
 
@@ -190,6 +192,7 @@ def test_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
     torch.cuda.synchronize()
     assert warp.launch_counts["warp_fwd"] == before["warp_fwd"] + 1
     assert warp.launch_counts["warp_bwd"] == before["warp_bwd"] + 1
+    assert warp.launch_counts["warp_bwd_image"] == before["warp_bwd_image"] + 1
 
     ip, cp = image.clone().requires_grad_(), coords.clone().requires_grad_()
     out_p = warp.grid_sample_plain(ip, cp, padding_mode)
@@ -198,6 +201,9 @@ def test_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
     for got, want in ((ck.grad, cp.grad), (ik.grad, ip.grad)):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    # d image has one summation order: the same bits on every call
+    again = warp.warp_bwd_image_cuda(coords, grad, shape[1:3], torch.float32, padding_mode)
+    assert torch.equal(again, ik.grad)
 
     # the image as data: the same d coords, and no d image
     cd = coords.clone().requires_grad_()
@@ -210,7 +216,8 @@ def test_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
 def test_warp_jvp_matches_plain_forward_mode(device, shape, out_hw, padding_mode):
     """warp_jvp through torch.func.jvp of grid_sample (the direct
     alignment's path) against the plain warp under forward AD: one launch of
-    each kernel; an image tangent raises."""
+    each kernel; an image tangent is warp_fwd of the tangent, and with a
+    coordinate tangent beside it the two add."""
     image, coords, _ = _warp_inputs(shape, out_hw, device)
     tangent = torch.randn(coords.shape, generator=torch.Generator().manual_seed(1)).to(device)
     before = dict(warp.launch_counts)
@@ -224,9 +231,16 @@ def test_warp_jvp_matches_plain_forward_mode(device, shape, out_hw, padding_mode
     assert (out - want).abs().max().item() <= 1e-5
     assert torch.isfinite(out_t).all()
     assert (out_t - want_t).abs().max().item() <= 1e-4 * want_t.abs().max().item()
-    with pytest.raises(ValueError, match="no image tangent"):
-        torch.func.jvp(lambda im: warp.grid_sample(im, coords, padding_mode),
-                       (image,), (torch.ones_like(image),))
+    image_t = torch.randn(image.shape, generator=torch.Generator().manual_seed(2)).to(device)
+    before = dict(warp.launch_counts)
+    _, got = torch.func.jvp(lambda im, c: warp.grid_sample(im, c, padding_mode),
+                            (image, coords), (image_t, tangent))
+    torch.cuda.synchronize()
+    assert warp.launch_counts["warp_fwd"] == before["warp_fwd"] + 2
+    assert warp.launch_counts["warp_jvp"] == before["warp_jvp"] + 1
+    _, want = torch.func.jvp(lambda im, c: warp.grid_sample_plain(im, c, padding_mode),
+                             (image, coords), (image_t, tangent))
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
@@ -240,8 +254,10 @@ def test_bf16_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
     (out * grad).sum().backward()
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and ck.grad.dtype == torch.float32
-    assert warp.bf16_launch_counts == {"warp_fwd_bf16": 1, "warp_bwd_bf16": 1}
-    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
+    assert warp.bf16_launch_counts == {"warp_fwd_bf16": 1, "warp_bwd_bf16": 1,
+                                       "warp_bwd_image_bf16": 0}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0,
+                                 "warp_bwd_image": 0}
     cp = coords.clone().requires_grad_()
     out_p = warp.grid_sample_plain(image.float(), cp, padding_mode)
     (out_p * grad).sum().backward()
@@ -253,17 +269,31 @@ def test_bf16_warp_kernels_match_plain(device, shape, out_hw, padding_mode):
 
 
 def test_bf16_warp_refuses_an_image_gradient(device):
-    image = torch.rand(2, 6, 8, 3, device=device).bfloat16()
-    coords = torch.rand(2, 6, 8, 2, device=device)
-    grad = torch.rand(2, 6, 8, 3, device=device)
-    with pytest.raises(ValueError, match="no gradient"):
-        warp.warp_bwd_cuda(image, coords, grad, need_image_grad=True)
-    with pytest.raises(ValueError, match="no gradient"):
-        warp.grid_sample(image.requires_grad_(), coords)
-    _, d_coords = warp.warp_bwd_cuda(image.detach(), coords, grad)
+    """Refused once; now a bfloat16 image's gradient on the card is the
+    float32 one of the widened image rounded once to bfloat16, as the CPU
+    gives it, and the coordinate tangent on a bfloat16 image is the float32
+    image's."""
+    gen = torch.Generator().manual_seed(3)
+    image = torch.rand((2, 6, 8, 3), generator=gen).to(device).bfloat16()
+    coords = ((torch.rand((2, 6, 8, 2), generator=gen) * 2 - 1) * 1.3).to(device)
+    grad = torch.randn((2, 6, 8, 3), generator=gen).to(device)
+    ik = image.clone().requires_grad_()
+    (warp.grid_sample(ik, coords) * grad).sum().backward()
+    assert ik.grad.dtype == torch.bfloat16
+    ic = image.cpu().requires_grad_()
+    (warp.grid_sample(ic, coords.cpu()) * grad.cpu()).sum().backward()
+    d32 = warp.warp_bwd_image_cuda(coords, grad, (6, 8))
+    assert torch.equal(ik.grad, d32.bfloat16())
+    assert (ik.grad.float().cpu() - ic.grad.float()).abs().max() <= \
+        2 ** -7 * ic.grad.float().abs().max()
+    tangent = torch.randn(coords.shape, generator=gen).to(device)
+    _, got = torch.func.jvp(lambda c: warp.grid_sample(image, c), (coords,), (tangent,))
+    _, want = torch.func.jvp(lambda c: warp.grid_sample(image.float(), c), (coords,), (tangent,))
+    assert torch.equal(got, want)
+    _, d_coords = warp.warp_bwd_cuda(image, coords, grad)
     assert torch.isfinite(d_coords).all()
     with pytest.raises(ValueError):
-        warp.warp_fwd_cuda(image.detach().half(), coords)
+        warp.warp_fwd_cuda(image.half(), coords)
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
@@ -356,7 +386,8 @@ def test_eval_step_on_the_card_matches_the_cpu(device, b, hw, gt_hw):
     card = make_eval_step(model, metrics_cfg)(batch)
     torch.cuda.synchronize()
     assert sa.launch_counts == {"softargmax_fwd": 0, "softargmax_bwd": 0}
-    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0,
+                                 "warp_bwd_image": 0}
     cpu = make_eval_step(cpu_model, metrics_cfg)(batch)
     valid = ((batch["depth"][..., 0] > 0) & (batch["depth"][..., 0] < 80)
              & (garg_crop_mask(*gt_hw).numpy() > 0))     # the KITTI config's crop

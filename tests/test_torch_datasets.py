@@ -33,6 +33,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 from PIL import Image
 
 from packnet_sfm_tpu.core.config import get_default_config as jax_default_config
@@ -43,6 +44,8 @@ from packnet_sfm_tpu.datasets.kitti import KITTIDataset as JaxKITTI
 from packnet_sfm_tpu.datasets.kitti import read_png_depth as jax_read_png_depth
 from packnet_sfm_tpu.datasets.loader import DataLoader as JaxLoader
 from packnet_sfm_tpu.datasets.loader import make_transform as jax_make_transform
+from packnet_sfm_tpu.engine import train as jax_train
+from packnet_sfm_tpu.engine.train import zero_metrics as jax_zero_metrics
 from packnet_sfm_tpu.engine.trainer import Trainer as JaxTrainer
 from packnet_sfm_tpu.parallel.mesh import make_mesh
 from packnet_sfm_tpu_torch.core.config import ConfigNode, parse_train_config
@@ -255,6 +258,16 @@ def _kitti_config(root, split):
     c.datasets.train.back_context = c.datasets.train.forward_context = 1
     return jax_parse_train_config(c)
 
+def _committed(tree, mesh):
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
+def _epoch_committed(jt, mesh):
+    """JAX's ``train_epoch(0)`` with its metrics committed to the mesh."""
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_train, "zero_metrics", lambda: _committed(jax_zero_metrics(), mesh))
+        return jt.train_epoch(0)
+
 
 @pytest.fixture(scope="module")
 def kitti_epoch(kitti_root):
@@ -262,12 +275,16 @@ def kitti_epoch(kitti_root):
 
     root, split = kitti_root
     jcfg = _kitti_config(root, split)
-    jt = JaxTrainer(jcfg, mesh=make_mesh(num_devices=1))
+    mesh = make_mesh(num_devices=1)
+    jt = JaxTrainer(jcfg, mesh=mesh)
     jt.init_state(next(iter(jt.train_loaders[0].epoch(0))))
+    # JAX's step returns its state and metrics committed to the mesh; from
+    # uncommitted ones it would compile a second program (the same numbers)
+    jt.state = _committed(jt.state, mesh)
     state0 = from_jax(_np_tree(jt.state.params), _np_tree(jt.state.batch_stats))
     pt = build_trainer(copy.deepcopy(jcfg.to_dict()), device="cpu")
     pt.model.load_state_dict(state0)
-    return dict(state0=state0, j_train=jt.train_epoch(0), t_train=pt.train_epoch(0),
+    return dict(state0=state0, j_train=_epoch_committed(jt, mesh), t_train=pt.train_epoch(0),
                 j_val=jt.validate(0), t_val=pt.validate(0),
                 j_state=from_jax(_np_tree(jt.state.params), _np_tree(jt.state.batch_stats)),
                 t_state={k: v.numpy() for k, v in pt.model.state_dict().items()}, trainer=pt)

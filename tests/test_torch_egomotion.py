@@ -188,29 +188,34 @@ def test_cuda_autograd_function_routes_the_tangent_to_warp_jvp(monkeypatch, mode
     """``_WarpCuda``'s forward-mode rule, on the CPU with the launchers
     replaced by the plain warp and the kernel's formula (which read each
     tensor's storage, as the launchers do): the coordinate tangent goes to
-    ``warp_jvp`` with the saved inputs, in both forward-mode APIs; an image
-    tangent raises."""
+    ``warp_jvp`` with the saved inputs, in both forward-mode APIs. An image
+    tangent (which raised once) goes to ``warp_fwd``, the warp being linear
+    in the image, and its value is the plain version's; with a coordinate
+    tangent beside it, the two parts add."""
     calls = []
 
-    def fake_fwd(image, coords, padding_mode="zeros"):
-        calls.append("fwd")
-        for t in (image, coords):
-            t.data_ptr()                    # what a launcher reads: raises without storage
-        return twarp.grid_sample_plain(image, coords, padding_mode)
-
-    def fake_jvp(image, coords, coords_tangent, padding_mode="zeros"):
-        # as warp_jvp_cuda: a new output, every pointer through _with_storage,
-        # and the result written into the output's storage by address
-        calls.append("jvp")
-        assert coords_tangent.dtype == torch.float32 and coords_tangent.is_contiguous()
-        out = torch.empty(coords.shape[:3] + image.shape[3:], dtype=torch.float32)
-        for t in (image, coords, coords_tangent):
+    def launched(name, out, result, *inputs):
+        # as the wrappers: every pointer through _with_storage, and the
+        # result written into the new output's storage by address
+        calls.append(name)
+        for t in inputs:
             twarp._with_storage(t).data_ptr()
-        result = twarp._with_storage(
-            _kernel_formula(image, coords, coords_tangent, padding_mode).contiguous())
+        result = twarp._with_storage(result.contiguous())
         ctypes.memmove(twarp._with_storage(out).data_ptr(), result.data_ptr(),
                        result.numel() * result.element_size())
         return out
+
+    def fake_fwd(image, coords, padding_mode="zeros"):
+        out = torch.empty(coords.shape[:3] + image.shape[3:], dtype=torch.float32)
+        result = twarp.grid_sample_plain(twarp._with_storage(image),
+                                         twarp._with_storage(coords), padding_mode)
+        return launched("fwd", out, result, image, coords)
+
+    def fake_jvp(image, coords, coords_tangent, padding_mode="zeros"):
+        assert coords_tangent.dtype == torch.float32 and coords_tangent.is_contiguous()
+        out = torch.empty(coords.shape[:3] + image.shape[3:], dtype=torch.float32)
+        result = _kernel_formula(image, coords, coords_tangent, padding_mode)
+        return launched("jvp", out, result, image, coords, coords_tangent)
 
     monkeypatch.setattr(twarp, "warp_fwd_cuda", fake_fwd)
     monkeypatch.setattr(twarp, "warp_jvp_cuda", fake_jvp)
@@ -227,9 +232,21 @@ def test_cuda_autograd_function_routes_the_tangent_to_warp_jvp(monkeypatch, mode
     assert calls == ["fwd", "jvp"]
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=TOL_JVP * want.abs().max().item())
-    with pytest.raises(ValueError, match="no image tangent"):
-        torch.func.jvp(lambda im: twarp._WarpCuda.apply(im, coords, "zeros"),
-                       (image,), (torch.ones_like(image),))
+    image_t = torch.from_numpy(np.random.default_rng(7).normal(size=image.shape)
+                               .astype(np.float32))
+    for primals, tangents, launches in (((image,), (image_t,), ["fwd", "fwd"]),
+                                        ((image, coords), (image_t, tangent),
+                                         ["fwd", "fwd", "jvp"])):
+        calls.clear()
+        f = (lambda im: twarp._WarpCuda.apply(im, coords, "zeros")) if len(primals) == 1 \
+            else (lambda im, c: twarp._WarpCuda.apply(im, c, "zeros"))
+        g = (lambda im: twarp.grid_sample_plain(im, coords)) if len(primals) == 1 \
+            else (lambda im, c: twarp.grid_sample_plain(im, c))
+        _, got = torch.func.jvp(f, primals, tangents)
+        _, want = torch.func.jvp(g, primals, tangents)
+        assert calls == launches
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=TOL_JVP * want.abs().max().item())
 
 
 # --- the pose graph ----------------------------------------------------------------

@@ -27,12 +27,14 @@ lockstep's figures.
 
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import jax
 import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from packnet_sfm_tpu.core.config import get_default_config as jax_default_config
 from packnet_sfm_tpu.datasets import augmentations as jaug
@@ -93,8 +95,16 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda v: np.array(v, copy=True), tree)
 
 
+def _committed(tree, mesh):
+    """``tree`` committed to ``mesh``, as JAX's step returns its state and
+    metrics: from uncommitted ones its first call would compile a second
+    program (the same numbers)."""
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
 def _flat(state: dict, keys) -> np.ndarray:
-    return np.concatenate([np.asarray(state[k], np.float64).ravel() for k in keys])
+    # concatenated in float32 by torch, then widened: ten times numpy's per-key widening
+    return torch.cat([torch.as_tensor(state[k]).reshape(-1) for k in keys]).double().numpy()
 
 
 def _cos(a, b):
@@ -126,9 +136,11 @@ def test_multiview_photometric_loss_matches_jax(case):
     vecs = (rng.normal(size=(2, 2, 6)) * [0.2, 0.05, 0.1, 0.01, 0.02, 0.01]).astype(np.float32)
     poses = [np.array(jax_pose_vec_to_mat(vecs[i])) for i in range(2)]
 
-    want, want_metrics = jphoto.multiview_photometric_loss(
-        image, context, inv_depths, K, poses,
-        jphoto.MultiViewPhotometricConfig(**LOSS_CASES[case]))
+    # one XLA program: eagerly, every op of the loss would compile on its own
+    want, want_metrics = jax.jit(partial(
+        jphoto.multiview_photometric_loss,
+        cfg=jphoto.MultiViewPhotometricConfig(**LOSS_CASES[case])))(
+        image, context, inv_depths, K, poses)
     t = torch.from_numpy
     got, got_metrics = tphoto.multiview_photometric_loss(
         t(image), [t(c) for c in context], [t(d) for d in inv_depths], t(K),
@@ -261,9 +273,9 @@ def _jax_steps(jmodel, variables, batches):
     # JAX: 3 SGD steps on a 1-device mesh
     tx = optax.sgd(LR)
     mesh = make_mesh(num_devices=1)
-    state = TrainState.create(variables, tx)
+    state = _committed(TrainState.create(variables, tx), mesh)
     step = jax_make_train_step(jmodel, tx, mesh, num_scales=4)
-    acc = jax_zero_metrics()
+    acc = _committed(jax_zero_metrics(), mesh)
     j_losses, j_params, prev = [], [], 0.0
     for b in batches:
         state, acc = step(state, acc, shard_batch(b, mesh), progress=0.0)

@@ -43,6 +43,15 @@ def test_pose_vec_to_mat_and_inverse():
         tpose.pose_vec_to_mat(torch.from_numpy(vec), mode="quat")
 
 
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_identity_pose_matches_jax(batch, dtype):
+    got = tpose.identity_pose(batch, getattr(torch, dtype))
+    want = jpose.identity_pose(batch, getattr(jnp, dtype))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
 def test_transform_points():
     rng = np.random.default_rng(1)
     T = np.array(jpose.pose_vec_to_mat(

@@ -163,10 +163,20 @@ def _configs(kind, flip=0.0):
     return cfg.model, ConfigNode.from_dict(cfg.model.to_dict())
 
 
-def _both(kind, batch, flip=0.0):
+_INITS = {}
+
+
+def _both(kind, batch, flip=0.0, seed=1):
+    """The JAX model of ``kind``, its initial variables at ``batch`` (drawn
+    once a module for each network pair and batch ``seed``: the kinds that
+    share DepthResNet-18 + PoseNet share them) and the port's model loaded
+    from them."""
     jcfg, tcfg = _configs(kind, flip)
     jmodel = jax_factory.setup_model(jcfg)
-    variables = jsfm.init_model(jmodel, jax.random.PRNGKey(0), batch)
+    nets = (jcfg.depth_net.name, jmodel.pose_net is not None, seed)
+    if nets not in _INITS:
+        _INITS[nets] = jsfm.init_model(jmodel, jax.random.PRNGKey(0), batch)
+    variables = _INITS[nets]
     model = setup_model(tcfg, device="cpu")
     model.load_state_dict(from_jax(_np(variables["params"]),
                                    _np(variables.get("batch_stats", {}))), strict=True)
@@ -176,7 +186,7 @@ def _both(kind, batch, flip=0.0):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_model_loss_of_each_kind_matches_jax(kind):
     batch = _batch(1, with_input_depth=kind == "SemiSupCompletionModel")
-    jmodel, variables, model = _both(kind, batch)
+    jmodel, variables, model = _both(kind, batch, seed=1)
     jloss, (jmetrics, _, _) = jax.jit(partial(jsfm.model_loss, jmodel))(variables, batch)
     loss, (metrics, _) = tsfm.model_loss(model, prepare_train_batch(batch, "cpu"))
     assert set(metrics) == set(jmetrics)
@@ -197,7 +207,7 @@ def test_flip_mirrors_input_depth_like_jax():
     """flip_lr_prob = 1: the network sees flip(rgb) and flip(input_depth),
     and both inverse-depth lists come back flipped, as in JAX."""
     batch = _batch(2, with_input_depth=True)
-    jmodel, variables, model = _both("SemiSupCompletionModel", batch, flip=1.0)
+    jmodel, variables, model = _both("SemiSupCompletionModel", batch, flip=1.0, seed=2)
     jout, _ = jax.jit(partial(jsfm.model_forward, jmodel, train=True))(
         variables, batch, rng=jax.random.PRNGKey(3))
     tbatch = prepare_train_batch(batch, "cpu")

@@ -163,8 +163,9 @@ def test_fused_pack_conv_gradients_match_two_step(k):
 
     two = grads(tfold.pack_conv_two_step)
     fused = grads(partial(tfold.fused_pack_conv, mode="fused"))
-    jgrads = jax.grad(lambda *a: jnp.sum(jfold.fused_pack_conv(*a, mode="fused") * cot),
-                      argnums=(0, 1, 2, 3, 4))(x, w3, b3, w2, b2)
+    # one XLA program: eagerly, every op of the transpose would compile on its own
+    jgrads = jax.jit(jax.grad(lambda *a: jnp.sum(jfold.fused_pack_conv(*a, mode="fused") * cot),
+                              argnums=(0, 1, 2, 3, 4)))(x, w3, b3, w2, b2)
     theirs = [jgrads[0], np.transpose(jgrads[1], (4, 3, 0, 1, 2)), jgrads[2],
               np.transpose(jgrads[3], (3, 2, 0, 1)), jgrads[4]]
     for f, t, j in zip(fused, two, theirs):

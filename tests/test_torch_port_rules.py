@@ -184,7 +184,8 @@ def test_warp_wrappers_take_only_cuda_or_cpu_tensors():
     warp.grid_sample(image, coords).sum().backward()
     warp.grid_sample_data(image, coords, "border")
     torch.func.jvp(lambda c: warp.grid_sample(image, c), (coords.detach(),), (coords.detach(),))
-    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0}
+    assert warp.launch_counts == {"warp_fwd": 0, "warp_bwd": 0, "warp_jvp": 0,
+                                 "warp_bwd_image": 0}
 
 
 def test_no_source_of_the_package_calls_a_library_warp():
@@ -642,6 +643,35 @@ def test_console_helpers_copy_matches_the_jax_package(capsys):
     ours = capsys.readouterr().out
     jlog.print_config(JaxNode.from_dict(cfg.to_dict()), prefix="run")
     assert ours == capsys.readouterr().out and "run" in ours
+
+
+def test_avg_meter_copy_matches_the_jax_package():
+    from packnet_sfm_tpu.utils.logging import AvgMeter as JaxAvgMeter
+    from packnet_sfm_tpu_torch.utils.logging import AvgMeter
+
+    ours, theirs = AvgMeter(3), JaxAvgMeter(3)
+    assert ours.get() == theirs.get() == 0.0
+    for value in (1.0, 2, np.float32(4.5), torch.tensor(7.0), -3.25):
+        assert ours(value) == theirs(value)
+    assert ours.get_and_reset() == theirs.get_and_reset() == (4.5 + 7.0 - 3.25) / 3
+    assert ours.get() == theirs.get() == 0.0
+
+
+@pytest.mark.parametrize("x,n", [(3, None), (3, 4), ([1], 3), ((1, 2), 2), ([1, 2], None),
+                                 ("ab", 2), ([1, 2], 3)])
+def test_list_and_shape_helpers_copy_matches_the_jax_package(x, n):
+    from packnet_sfm_tpu.utils import misc as jmisc
+    from packnet_sfm_tpu_torch.utils import misc as tmisc
+
+    try:
+        want = jmisc.make_list(x, n)
+    except ValueError:
+        with pytest.raises(ValueError, match="list length"):
+            tmisc.make_list(x, n)
+    else:
+        assert tmisc.make_list(x, n) == want
+    for a, b in (((2, 3), (2, 3)), ((2, 3), [2, 3]), ((2, 3), (2, 4)), ((2,), (2, 1)), ((), ())):
+        assert tmisc.same_shape(a, b) == jmisc.same_shape(a, b)
 
 
 def test_encoder_artifact_copy_matches_the_jax_package(tmp_path):

@@ -61,11 +61,24 @@ def _image(seed, channels=3):
     return np.random.default_rng(seed).uniform(size=(B, H, W, channels)).astype(np.float32)
 
 
-def _run_both(jnet, port, args, train, call=None):
+_INITS = {}
+
+
+def _init(label, jnet, seed, args):
+    """JAX's initial variables of ``jnet`` at ``args`` from ``PRNGKey(seed)``,
+    drawn once a module under ``label`` (the network and its inputs): the
+    train and eval cases, and the grafts, share the draw."""
+    if (label, seed) not in _INITS:
+        _INITS[label, seed] = jax.jit(partial(jnet.init, train=True))(
+            jax.random.PRNGKey(seed), *args)
+    return _INITS[label, seed]
+
+
+def _run_both(label, jnet, port, args, train, call=None):
     """(JAX output, its batch_stats updates or None, the port's output) on
     the same inputs, the port loaded from JAX's init (and run through
     ``call`` where given)."""
-    variables = jax.jit(partial(jnet.init, train=True))(jax.random.PRNGKey(0), *args)
+    variables = _init(label, jnet, 0, args)
     port.load_state_dict(from_jax(_np(variables["params"]), _np(variables["batch_stats"])),
                          strict=True)
     port.train(train)
@@ -92,8 +105,8 @@ def _check_stats(port, upd):
 def test_resnet_encoder_matches_jax(layers, train):
     x = _image(layers)
     port = ResNetEncoder(layers)
-    theirs, upd, ours = _run_both(JaxResNetEncoder(num_layers=layers), port, [x], train,
-                                  call=lambda t: port(t.permute(0, 3, 1, 2)))
+    theirs, upd, ours = _run_both(f"encoder-{layers}", JaxResNetEncoder(num_layers=layers),
+                                  port, [x], train, call=lambda t: port(t.permute(0, 3, 1, 2)))
     assert port.num_ch_enc == JaxResNetEncoder(num_layers=layers).num_ch_enc
     assert len(ours) == 5
     for i, (o, t) in enumerate(zip(ours, theirs)):
@@ -113,7 +126,7 @@ def test_depth_networks_match_jax(net, train):
         jnet, port = JaxDepthResNet(version=version + "pt"), DepthResNet(version)
     else:
         jnet, port = JaxRaySurfaceResNet(version=version), RaySurfaceResNet(version + "pt")
-    theirs, upd, ours = _run_both(jnet, port, [x], train)
+    theirs, upd, ours = _run_both(net, jnet, port, [x], train)
     if name == "RaySurfaceResNet":
         _close(ours["ray_surface"], theirs["ray_surface"], train, "ray_surface")
         ours, theirs = ours["inv_depths"], theirs["inv_depths"]
@@ -130,7 +143,8 @@ def test_depth_networks_match_jax(net, train):
 def test_pose_resnet_matches_jax(version, train):
     img, ctx = _image(5), [_image(6), _image(7)]
     port = PoseResNet(version)
-    theirs, upd, ours = _run_both(JaxPoseResNet(version=version), port, [img, ctx], train)
+    theirs, upd, ours = _run_both(f"PoseResNet-{version}", JaxPoseResNet(version=version), port,
+                                  [img, ctx], train)
     assert tuple(ours.shape) == (B, 2, 6)
     assert port.encoder.conv1.weight.shape[1] == 6
     _close(ours, theirs, train)
@@ -146,8 +160,9 @@ def test_encoder_graft_matches_jax(tmp_path, net, layers):
     """An ImageNet encoder artifact (the JAX package's npz layout) grafted
     onto a '<N>pt' network: the same tensors as the JAX package's graft,
     PoseResNet's conv1 widened to two images."""
-    enc = JaxResNetEncoder(num_layers=layers)
-    enc_vars = jax.jit(partial(enc.init, train=True))(jax.random.PRNGKey(9), _image(1))
+    # the encoder test's draw (a stand-in for ImageNet weights)
+    enc_vars = _init(f"encoder-{layers}", JaxResNetEncoder(num_layers=layers), 0,
+                     [_image(layers)])
     artifact = str(tmp_path / f"resnet{layers}.npz")
     save_encoder_artifact(artifact, _np(enc_vars["params"]), _np(enc_vars["batch_stats"]))
 
@@ -159,7 +174,7 @@ def test_encoder_graft_matches_jax(tmp_path, net, layers):
                              RaySurfaceResNet(f"{layers}pt")),
     }[net]
     args = [_image(2), [_image(3)] * 2] if net == "PoseResNet" else [_image(2)]
-    variables = jax.jit(partial(jnet.init, train=True))(jax.random.PRNGKey(1), *args)
+    variables = _init(f"graft-{net}-{layers}", jnet, 1, args)
     grafted = jax_graft(artifact, {"params": {"depth_net": _np(variables["params"])},
                                    "batch_stats": {"depth_net": _np(variables["batch_stats"])}},
                         "depth_net", num_input_images=n_images)

@@ -68,6 +68,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from packnet_sfm_tpu.core.config import get_default_config as jax_default_config
 from packnet_sfm_tpu.engine import factory as jax_factory
@@ -116,7 +117,8 @@ def _close(ours, theirs, what="", rtol=RTOL, atol=ATOL):
 
 
 def _flat(state: dict, keys) -> np.ndarray:
-    return np.concatenate([np.asarray(state[k], np.float64).ravel() for k in keys])
+    # concatenated in float32 by torch, then widened: ten times numpy's per-key widening
+    return torch.cat([torch.as_tensor(state[k]).reshape(-1) for k in keys]).double().numpy()
 
 
 def _cos(a, b):
@@ -379,11 +381,13 @@ def _jax_lockstep(jmodel, variables, batches):
     mesh = make_mesh(num_devices=1)
     # copies: the JAX step donates its state's buffers
     copy = partial(jax.tree_util.tree_map, jnp.array)
-    jstate = TrainState.create({"params": {"depth_net": copy(variables["params"])},
-                                "batch_stats": {"depth_net": copy(variables["batch_stats"])}},
-                               tx)
+    # committed to the mesh as the step returns them: from uncommitted ones
+    # its first call would compile a second program (the same numbers)
+    jstate, acc = jax.device_put(
+        (TrainState.create({"params": {"depth_net": copy(variables["params"])},
+                            "batch_stats": {"depth_net": copy(variables["batch_stats"])}}, tx),
+         jax_zero_metrics()), NamedSharding(mesh, PartitionSpec()))
     jstep = jax_make_train_step(jmodel, tx, mesh)
-    acc = jax_zero_metrics()
     j_losses, j_states, prev = [], [], 0.0
     for b in batches:
         jstate, acc = jstep(jstate, acc, shard_batch(b, mesh), progress=0.0)
@@ -488,7 +492,8 @@ def test_two_ranks_masked_batch_norm_matches_jax_on_the_global_batch(tmp_path, m
     channels = (8, 16)
     net = jsparse.SparseDepthEncoder(channels=channels)
     variables = jax.jit(partial(net.init, train=True))(jax.random.PRNGKey(4), depth)
-    feats, upd = net.apply(variables, depth, train=True, mutable=["batch_stats"])
+    feats, upd = jax.jit(partial(net.apply, train=True, mutable=["batch_stats"]))(variables,
+                                                                               depth)
     weights = {f"w{i}": rng.normal(size=f.shape).astype(np.float32) for i, f in enumerate(feats)}
 
     def loss_fn(params):
@@ -496,7 +501,7 @@ def test_two_ranks_masked_batch_norm_matches_jax_on_the_global_batch(tmp_path, m
                            train=True, mutable=["batch_stats"])
         return sum(jnp.sum(f * weights[f"w{i}"]) for i, f in enumerate(out))
 
-    grads = from_jax(_np(jax.grad(loss_fn)(variables["params"])))
+    grads = from_jax(_np(jax.jit(jax.grad(loss_fn))(variables["params"])))
     stats = from_jax({}, _np(upd["batch_stats"]))
     np.savez(tmp_path / "depth.npz", depth=depth)
     np.savez(tmp_path / "weights.npz", **weights)

@@ -47,6 +47,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from packnet_sfm_tpu.core.config import merge_config as jax_merge_config
 from packnet_sfm_tpu.core.config import get_default_config as jax_default_config
@@ -92,8 +93,16 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(lambda v: np.array(v, copy=True), tree)
 
 
+def _committed(tree, mesh):
+    """``tree`` committed to ``mesh``, as JAX's step returns its state and
+    metrics: from uncommitted ones its first call would compile a second
+    program (the same numbers)."""
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
 def _flat(state: dict, keys) -> np.ndarray:
-    return np.concatenate([np.asarray(state[k], np.float64).ravel() for k in keys])
+    # concatenated in float32 by torch, then widened: ten times numpy's per-key widening
+    return torch.cat([torch.as_tensor(state[k]).reshape(-1) for k in keys]).double().numpy()
 
 
 def _cos(a, b):
@@ -140,9 +149,9 @@ def _run_both():
     tx = jax_factory.make_optimizer(jcfg.model.optimizer, jcfg.model.scheduler,
                                     STEPS_PER_EPOCH)
     mesh = make_mesh(num_devices=1)
-    state = TrainState.create(variables, tx)
+    state = _committed(TrainState.create(variables, tx), mesh)
     step = jax_make_train_step(jmodel, tx, mesh)
-    acc = jax_zero_metrics()
+    acc = _committed(jax_zero_metrics(), mesh)
     j_losses, j_metrics0, j_params, prev = [], None, [], 0.0
     for i, b in enumerate(batches):
         state, acc = step(state, acc, shard_batch(b, mesh), progress=PROGRESS)

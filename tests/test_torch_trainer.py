@@ -35,9 +35,12 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from packnet_sfm_tpu.core.config import get_default_config as jax_default_config
 from packnet_sfm_tpu.core.config import parse_train_config as jax_parse_train_config
+from packnet_sfm_tpu.engine import train as jax_train
+from packnet_sfm_tpu.engine.train import zero_metrics as jax_zero_metrics
 from packnet_sfm_tpu.engine.trainer import Trainer as JaxTrainer
 from packnet_sfm_tpu.parallel.mesh import make_mesh
 from packnet_sfm_tpu_torch.core.config import ConfigNode, parse_train_config
@@ -84,18 +87,34 @@ def _port_config(jcfg):
 
 
 def _flat(state, keys):
-    return np.concatenate([np.asarray(state[k], np.float64).ravel() for k in keys])
+    # concatenated in float32 by torch, then widened: ten times numpy's per-key widening
+    return torch.cat([torch.as_tensor(state[k]).reshape(-1) for k in keys]).double().numpy()
+
+
+def _committed(tree, mesh):
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
+def _epoch_committed(jt, mesh):
+    """JAX's ``train_epoch(0)`` with its metrics committed to the mesh."""
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_train, "zero_metrics", lambda: _committed(jax_zero_metrics(), mesh))
+        return jt.train_epoch(0)
 
 
 @pytest.fixture(scope="module")
 def one_epoch():
     jcfg = _config()
-    jt = JaxTrainer(jcfg, mesh=make_mesh(num_devices=1))
+    mesh = make_mesh(num_devices=1)
+    jt = JaxTrainer(jcfg, mesh=mesh)
     jt.init_state(next(iter(jt.train_loaders[0].epoch(0))))
+    # JAX's step returns its state and metrics committed to the mesh; from
+    # uncommitted ones it would compile a second program (the same numbers)
+    jt.state = _committed(jt.state, mesh)
     state0 = from_jax(_np_tree(jt.state.params), _np_tree(jt.state.batch_stats))
     pt = Trainer(_port_config(jcfg), device="cpu")
     pt.model.load_state_dict(state0)
-    out = dict(state0=state0, j_train=jt.train_epoch(0), t_train=pt.train_epoch(0),
+    out = dict(state0=state0, j_train=_epoch_committed(jt, mesh), t_train=pt.train_epoch(0),
                j_val=jt.validate(0), t_val=pt.validate(0),
                j_state=from_jax(_np_tree(jt.state.params), _np_tree(jt.state.batch_stats)),
                t_state={k: v.numpy() for k, v in pt.model.state_dict().items()},

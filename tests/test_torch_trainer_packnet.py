@@ -32,8 +32,11 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from packnet_sfm_tpu.core.config import parse_train_config as jax_parse_train_config
+from packnet_sfm_tpu.engine import train as jax_train
+from packnet_sfm_tpu.engine.train import zero_metrics as jax_zero_metrics
 from packnet_sfm_tpu.engine.trainer import Trainer as JaxTrainer
 from packnet_sfm_tpu.parallel.mesh import make_mesh
 from packnet_sfm_tpu_torch.core.config import (
@@ -65,8 +68,13 @@ def _cut(cfg):
     return cfg
 
 
+def _committed(tree, mesh):
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
 def _flat(state, keys):
-    return np.concatenate([np.asarray(state[k], np.float64).ravel() for k in keys])
+    # concatenated in float32 by torch, then widened: ten times numpy's per-key widening
+    return torch.cat([torch.as_tensor(state[k]).reshape(-1) for k in keys]).double().numpy()
 
 
 @pytest.fixture(scope="module")
@@ -74,8 +82,12 @@ def runs():
     # the JAX package's yaml parse of the recipe; the port's dict copy is
     # held to the same parse by tests/test_torch_port_rules.py
     jcfg = _cut(jax_parse_train_config(str(ROOT / "configs" / "overfit_packnet_synthetic.yaml")))
-    jt = JaxTrainer(jcfg, mesh=make_mesh(num_devices=1))
+    mesh = make_mesh(num_devices=1)
+    jt = JaxTrainer(jcfg, mesh=mesh)
     jt.init_state(next(iter(jt.train_loaders[0].epoch(0))))
+    # JAX's step returns its state and metrics committed to the mesh; from
+    # uncommitted ones it would compile a second program (the same numbers)
+    jt.state = _committed(jt.state, mesh)
     state0 = from_jax(_np_tree(jt.state.params), _np_tree(jt.state.batch_stats))
     pt = Trainer(parse_train_config(ConfigNode.from_dict(copy.deepcopy(jcfg.to_dict()))),
                  device="cpu")
@@ -83,9 +95,12 @@ def runs():
     pt._setup_training()
     pt.train_loaders = jt.train_loaders
     j_epochs, t_epochs = [], []
-    for epoch in range(EPOCHS):
-        j_epochs.append(jt.train_epoch(epoch))
-        t_epochs.append(pt.train_epoch(epoch))
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_train, "zero_metrics",
+                      lambda: _committed(jax_zero_metrics(), mesh))
+        for epoch in range(EPOCHS):
+            j_epochs.append(jt.train_epoch(epoch))
+            t_epochs.append(pt.train_epoch(epoch))
     return dict(state0=state0, j_epochs=j_epochs, t_epochs=t_epochs, trainer=pt,
                 j_state=from_jax(_np_tree(jt.state.params)),
                 t_state={k: v.numpy() for k, v in pt.model.state_dict().items()})
