@@ -25,15 +25,19 @@ Phases, each of which fails the run:
    every side, both padding modes, C = 3, 1 and 4, B = 1 and 3, and its
    time at the odometry path's [1,192,640,3]. warp_bwd_image (the image's
    gradient, float32 and bfloat16) on every warp case above and on one
-   where 2000 samples collapse onto a corner under border padding and one
-   where the output is 128 times the image: within TOL_WARP_GRAD of the
-   plain version (bfloat16: beyond a bfloat16 spacing of each element, and
-   the float32 kernel's result rounded once), the same bits over 3 calls,
-   one of them under torch.use_deterministic_algorithms(True); grid_sample
-   under autograd with the image requiring a gradient, the call that
-   reaches it (no train, eval or odometry path does), launches it once in
-   each dtype; its times at the four shapes beside the plain version's and
-   F.grid_sample's image gradient.
+   where 2000 samples collapse onto a corner under border padding, one
+   where the output is 128 times the image, one whose 8 x 32 target tiles
+   the image's edge cuts, one with every tap off the image under zeros
+   padding (d image exactly 0), and a tile's bin at its 256 records and
+   just past them (the walk): within TOL_WARP_GRAD of the plain version
+   (bfloat16: beyond a bfloat16 spacing of each element, and the float32
+   kernel's result rounded once), the same bits over 3 calls, one of them
+   under torch.use_deterministic_algorithms(True); grid_sample under
+   autograd with the image requiring a gradient, the call that reaches it
+   (no train, eval or odometry path does), launches it once in each dtype;
+   the device operations one warp_bwd_image_cuda call enqueues, counted by
+   torch.profiler (at most WARP_IMAGE_DEVICE_OPS); its times at the four
+   shapes beside the plain version's and F.grid_sample's image gradient.
 3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
    random weights from seed 0) on synthetic samples, as the config says:
@@ -262,14 +266,19 @@ TOL_LOSS_CPU = 1e-3
 # own (measured 2.2e-6 on an H100 with 8000 taps on one pixel).
 TOL_WARP_FWD = 1e-5
 TOL_WARP_GRAD = 1e-4
-# warp_bwd_image, the warp's image gradient (a gather over a sorted index):
-# per output pixel the function must read the coordinates (8 B) and the
-# cotangent (4C B) and write d image (4C B a source pixel); FP32 operations
-# ~24 for the coordinates and weights, then a multiply-add (2) a tap and
-# channel. Its index (counts, offsets and keys, each written and read) moves
-# some 40 B a pixel more, which bound_with_index_ms adds.
+# warp_bwd_image, the warp's image gradient (a gather over an index binned
+# by tiles of target pixels): per output pixel the function must read the
+# coordinates (8 B) and the cotangent (4C B) and write d image (4C B a
+# source pixel); FP32 operations ~24 for the coordinates and weights, then a
+# multiply-add (2) a tap and channel. Its index moves some 9 B a pixel more,
+# which bound_with_index_ms adds: the sum pass reads the coordinates again
+# (8 B), and a smooth warp writes and reads ~2.3 records of 8 B for each
+# 32 output pixels (~1.2 B), beside a 4 B count a tile of 256 pixels.
 WARP_IMAGE_OPS = (24, 8)
-WARP_IMAGE_INDEX_BYTES = 40
+WARP_IMAGE_INDEX_BYTES = 9
+# At most this many device operations (kernels and memsets) a call of
+# warp_bwd_image_cuda: the counts' memset, place and sum.
+WARP_IMAGE_DEVICE_OPS = 4
 # FP32 operations per output pixel of the warp, for the bound: coordinates
 # and weights ~20, then 8 (forward) or 16 (backward) per channel.
 WARP_OPS = {"fwd": (20, 8), "bwd": (24, 16)}
@@ -764,7 +773,7 @@ def image_grad_checks(warp, coords, grad, hw, pad, d_image, want):
     torch.cuda.synchronize()
     spacing = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -120))) - 7)
     e16 = ((d16.float() - want).abs() - spacing).clamp(min=0).max().item() / \
-        want.abs().max().item()
+        max(want.abs().max().item(), 1e-30)
     same = torch.equal(again, d_image) and torch.equal(deterministic, d_image)
     log(f"warp_bwd_image: the same bits over 3 calls {same}; bfloat16 {e16:.3e} of the "
         f"largest beyond its spacing, the float32 result rounded "
@@ -802,6 +811,39 @@ def image_grad_launches(warp, device, shape):
     return launches
 
 
+def image_grad_device_ops(warp, device, shape):
+    """The device operations (kernels and memsets) that one call of
+    warp_bwd_image_cuda enqueues at ``shape`` = (B, H, W), C = 3, counted by
+    torch.profiler over 5 calls after a warm-up, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator().manual_seed(5)
+    b, h, w = shape
+    coords = smooth_coords(gen, b, h, w, device)
+    grad = torch.randn((b, h, w, 3), generator=gen).to(device)
+    for _ in range(3):
+        warp.warp_bwd_image_cuda(coords, grad, (h, w))
+    torch.cuda.synchronize()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            warp.warp_bwd_image_cuda(coords, grad, (h, w))
+        torch.cuda.synchronize()
+    names = {}
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            name = event.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = "memset" if "Memset" in name else name.split("(")[0].split("<")[0]
+            names[name] = names.get(name, 0) + 1
+    per_call = sum(names.values()) / calls
+    log(f"warp_bwd_image_cuda at [{b},{h},{w},3]: {per_call:g} device operations a call "
+        f"(torch.profiler over {calls} calls: {names}; at most {WARP_IMAGE_DEVICE_OPS})")
+    if not 0 < per_call <= WARP_IMAGE_DEVICE_OPS:
+        raise AssertionError(f"warp_bwd_image_cuda enqueues {per_call:g} device operations")
+    return per_call
+
+
 def warp_kernel_phase(device, shapes):
     """warp_fwd/warp_bwd/warp_bwd_image against the plain version, then
     their times at the flagship loss's shapes beside the plain version's and
@@ -825,15 +867,22 @@ def warp_kernel_phase(device, shapes):
     # HR recipe's finest scale (two contexts, 384x1280, space 2) and a small
     # band in border mode
     cases += [(2, 384, 1280, 3, 192, 1280, "zeros"), (3, 48, 160, 1, 24, 160, "border")]
-    # the image gradient's longer segments: 2000 samples collapsed onto the
+    # the image gradient's crowded targets: 2000 samples collapsed onto the
     # bottom-right pixel (8000 taps on it), and an output 128 times the
-    # image (some 500 taps a pixel)
-    collapsed = (1, 48, 160, 3, 48, 160, "border")
-    cases += [collapsed, (2, 6, 10, 3, 48, 160, "zeros")]
+    # image (some 500 taps a pixel); its tiles of 8 x 32 targets cut by the
+    # image's edge (13 x 45); every tap off the image under 'zeros' (d image
+    # exactly 0); a tile's bin at its 256 records (an 8 x 32 image, one tile,
+    # under 64 x 128 outputs: 256 warps) and just past it (64 x 130: 260
+    # warps, the walk)
+    collapsed, outside = (1, 48, 160, 3, 48, 160, "border"), (2, 24, 80, 3, 24, 80, "zeros")
+    cases += [collapsed, (2, 6, 10, 3, 48, 160, "zeros"), (2, 13, 45, 3, 20, 50, "border"),
+              outside, (1, 8, 32, 3, 64, 128, "zeros"), (1, 8, 32, 3, 64, 130, "border")]
     for b, h, w, c, ho, wo, pad in cases:
         image, coords, grad = warp_inputs(gen, b, h, w, c, ho, wo, device, spread=1.3)
         if (b, h, w, c, ho, wo, pad) == collapsed:
             coords.view(-1, 2)[:2000] = torch.tensor([3.0, 2.5], device=device)
+        if (b, h, w, c, ho, wo, pad) == outside:
+            coords += 3.0
         out = warp.warp_fwd_cuda(image, coords, pad)
         d_image, d_coords = warp.warp_bwd_cuda(image, coords, grad, pad, need_image_grad=True)
         _, d_coords_only = warp.warp_bwd_cuda(image, coords, grad, pad)
@@ -844,7 +893,10 @@ def warp_kernel_phase(device, shapes):
         e_fwd = (out - out_p).abs().max().item()
         e_dc = (d_coords - cp.grad).abs().max().item()
         e_di = (d_image - ip.grad).abs().max().item()
-        rel = max(e_dc / cp.grad.abs().max().item(), e_di / ip.grad.abs().max().item())
+        rel = max(e_dc / max(cp.grad.abs().max().item(), 1e-30),
+                  e_di / max(ip.grad.abs().max().item(), 1e-30))
+        if (b, h, w, c, ho, wo, pad) == outside and not bool((d_image == 0).all()):
+            raise AssertionError("warp_bwd_image: a tap off the image reached d image")
         log(f"warp B={b} {h}x{w}x{c} -> {ho}x{wo} {pad}: max |d out| {e_fwd:.3e} (tolerance "
             f"{TOL_WARP_FWD:g}); max |d grad| d_coords {e_dc:.3e} d_image {e_di:.3e}, "
             f"{rel:.3e} of the largest (tolerance {TOL_WARP_GRAD:g})")
@@ -872,7 +924,7 @@ def warp_kernel_phase(device, shapes):
         (out_p * grad).sum().backward()
         e_fwd = (out16 - out_p).abs().max().item()
         e_dc = (d_coords16 - cp.grad).abs().max().item()
-        rel = e_dc / cp.grad.abs().max().item()
+        rel = e_dc / max(cp.grad.abs().max().item(), 1e-30)
         log(f"warp bf16 image, same case: max |d out| {e_fwd:.3e}; d_coords {e_dc:.3e}, "
             f"{rel:.3e} of the largest")
         if not (e_fwd <= TOL_WARP_FWD and rel <= TOL_WARP_GRAD):
@@ -990,8 +1042,10 @@ def warp_kernel_phase(device, shapes):
                                   **{k: v for k, v in rows[key][0].items() if k != "shape"})
               for key in rows}
     launches = image_grad_launches(warp, device, shapes[0])
+    device_ops = image_grad_device_ops(warp, device, shapes[0])
     for key in ("warp_bwd_image", "warp_bwd_image_bf16"):
         result[key]["path_launches"] = launches
+        result[key]["device_ops"] = device_ops
     return result
 
 
@@ -3648,7 +3702,7 @@ def main(kernels_only=False):
                      ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
                      bound_by=m["bound_by"], library_ms=m.get("library_ms"))
         for extra in ("dtype", "by_shape", "by_case", "library_note", "case", "vs_whole",
-                      "bound_with_index_ms"):
+                      "bound_with_index_ms", "device_ops"):
             if extra in m:
                 entry[extra] = m[extra]
         if name in ("warp_fwd", "warp_bwd"):

@@ -62,27 +62,60 @@
 // arrive, which changes from run to run, so this is a gather over a sorted
 // index instead. A tap's target depends on the coordinates only, not on the
 // channel, so one index serves all C channels:
-// - count: one thread per output pixel p adds 1 (an integer atomic, exact)
-//   to the count of each target pixel q of its at most four taps k: the taps
-//   inside the image under 'zeros', all four, clamped, under 'border' (where
-//   two taps of a pixel may land on one q; both are entries);
-// - the caller turns the counts into segment offsets (an exclusive scan of
-//   the int32 counts: index bookkeeping, no part of the arithmetic);
-// - place: each entry writes its key 4 p + k into its target's segment, at a
-//   slot taken with an integer atomic (so in no fixed order);
-// - sum: each segment is put in increasing key order and summed in that
-//   order, d image[q, ch] = fmaf(g[p, ch], w_k, ...) from 0 in float32, and
-//   written once (rounded once to bfloat16 for a bfloat16 image). A segment
-//   of at most SEG_SHORT entries (nearly all: about 4 where the warp is
-//   smooth) is sorted by one thread in registers; one of at most SEG_MID by a
-//   block in shared memory (a bitonic sort); a longer one (every sample
-//   clamped into one corner) by a block that walks the image's output pixels
-//   in order and keeps those that land on q, chunk by chunk. The three give
-//   the same sum in the same order, so d image's bits depend on neither the
-//   run nor the launch configuration.
-// It reads the coordinates (8 B a pixel) in three passes and the cotangent
-// (4C B) once, and writes d image once; its index moves some 40 B more a
-// pixel (counts, offsets, keys and their reads).
+// - the sum of target q is d image[q, ch] = fmaf(g[p, ch], w_k(p), ...) over
+//   its entries (p, k) in increasing key 4 p + k, from 0 in float32, written
+//   once (rounded once to bfloat16 for a bfloat16 image); the entries are
+//   the taps inside the image under 'zeros', all four, clamped, under
+//   'border' (where two taps of a pixel may land on one q: both count);
+// - targets are binned by tiles of TILE_H x TILE_W pixels, not by pixel.
+//   Place (a thread an output pixel): each warp finds the tiles its 32
+//   pixels' taps land on (__reduce_min_sync over each lane's sorted tiles)
+//   and writes one record (warp, lanes with a tap there), 8 B, into each
+//   tile's bin of BIN_RECORDS, at a slot taken with an integer atomic, the
+//   warp's atomics in flight together. A smooth view-synthesis warp gives
+//   ~2.3 records a warp, ~18 a tile: ~70 k atomics and ~0.6 MB of records at
+//   [8,192,640] where a per-pixel index took 7.9 M atomics and ~40 B a pixel;
+// - sum (a block a tile, a thread a target): the block sorts its bin's
+//   records by warp, so its pixel slots (each record's lanes in order) run in
+//   increasing p. A round of ROUND slots reads each slot's coordinates and
+//   cotangent once, and lists the slot under the cell of its first tap
+//   (y0, x0), a cell's first CELL_SLOTS in place. Tap k = (dy, dx) lands on
+//   (y0 + dy, x0 + dx), so a target away from a 'border' image's edge takes
+//   tap k from cell t - (dy, dx) alone: its thread sorts the slots of its four
+//   cells, 4 slot + k, with a network of 19 comparators (more than two in a
+//   cell: a merge) and adds them in that order. A target on a 'border'
+//   edge, where clamped taps of up to 4 x 4 cells meet, merges their lists
+//   and tests each tap. Rounds follow in slot order; neighbouring threads
+//   write neighbouring pixels. A round with more than CELL_SLOTS slots in a
+//   cell (a zoom-out, samples clamped into a corner) lists every cell's
+//   slots after a block scan instead;
+// - a bin with more than BIN_RECORDS records (more than 256 warps on one
+//   tile) takes the walk: its block walks every output pixel of the image in
+//   order and keeps those with a tap on the tile (a block scan), then the
+//   same rounds. Same order, same bits; slower, on such tiles only;
+// - three device operations a call: the fill counters' memset (4 B a tile),
+//   place and sum; the records are scratch of any contents, as no pass reads
+//   a slot that place did not write.
+// The bits do not depend on the run, the launch or the path a tile takes:
+// every path adds a target's taps in key order. What bounds it: it must
+// read the coordinates (8 B a pixel) and the cotangent (4C B) and write
+// d image (4C B a source pixel), 0.0094 ms at [8,192,640,3] at 3.35 TB/s;
+// it reads the coordinates twice and its records (~1 B a pixel) once each
+// way. Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), the sum
+// pass takes over two thirds of the time and is bound by each block's chain
+// of dependent loads and barriers, not by bytes; place by its instructions
+// (~300 a pixel). Measured and dropped there (the whole call at
+// [8,192,640,3], float32): grouping a round's four entries a slot by target
+// with shared atomics and ranks, 0.077 ms (the cells' one list entry a
+// slot, 0.058, then in place with the sorting network, 0.045); a
+// per-target insertion sort of those entries (80 registers, 0.094); picking
+// each target's least slot from unsorted cells, 0.083; tiles of 4 x 32 or
+// 16 x 16 targets (no faster, or slower); one resident block a slot walking
+// tiles with the next tile's records loaded ahead, 0.049; L1 prefetch of a
+// record's coordinates and cotangent while the records are sorted
+// (+0.001); a slot's four tap weights kept in shared memory, 0.046; a count
+// pass and a scan before place, which the fixed bins make unneeded. Kept:
+// __launch_bounds__ for six blocks an SM (40 registers).
 //
 // The coordinate tangent (warp_jvp). The direct pose alignment of the
 // ego-motion path (packnet_sfm_tpu/egomotion/alignment.py) builds its
@@ -133,6 +166,8 @@ struct Taps {
   int o00, o01, o10, o11;
   float m00, m01, m10, m11;  // 1 where the tap counts, else 0
   float wx, wy;
+  int x0, y0;                // the first tap's column and row, in [-2, w] and [-2, h]
+  int cx0, cx1, cy0, cy1;    // the taps' columns and rows, clamped into the image
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -157,6 +192,12 @@ __device__ __forceinline__ Taps make_taps(float cx, float cy, int h, int w,
   const bool vy0 = y0 >= 0 && y0 <= h - 1, vy1 = y1 >= 0 && y1 <= h - 1;
   const int cx0 = clampi(x0, 0, w - 1), cx1 = clampi(x1, 0, w - 1);
   const int cy0 = clampi(y0, 0, h - 1), cy1 = clampi(y1, 0, h - 1);
+  t.x0 = x0;
+  t.y0 = y0;
+  t.cx0 = cx0;
+  t.cx1 = cx1;
+  t.cy0 = cy0;
+  t.cy1 = cy1;
   t.o00 = cy0 * w + cx0;
   t.o01 = cy0 * w + cx1;
   t.o10 = cy1 * w + cx0;
@@ -278,22 +319,27 @@ warp_bwd_kernel(const T* __restrict__ image,
 
 // --- warp_bwd_image: the transposed warp, summed in key order -------------
 
-// Longest segment that one thread sorts in registers, and that one block
-// sorts in shared memory (a power of two).
-constexpr int SEG_SHORT = 32;
-constexpr int SEG_MID = 2048;
-// Blocks that walk the lists of longer segments (each takes whole segments).
-constexpr int LIST_BLOCKS = 264;
-
-// Tap k's target (a pixel offset within its image) and whether it counts.
-__device__ __forceinline__ bool tap_target(const Taps& t, int k, int* q) {
-  switch (k) {
-    case 0: *q = t.o00; return t.m00 != 0.f;
-    case 1: *q = t.o01; return t.m01 != 0.f;
-    case 2: *q = t.o10; return t.m10 != 0.f;
-    default: *q = t.o11; return t.m11 != 0.f;
-  }
-}
+// A tile of TILE_H x TILE_W target pixels is one block of the sum pass, a
+// target a thread. A tile's bin keeps at most BIN_RECORDS records, one a
+// thread; a tile with more takes the walk. A round of the sum pass takes
+// ROUND pixel slots.
+constexpr int TILE_W = 32;
+constexpr int TILE_H = 8;
+constexpr int TILE_THREADS = TILE_W * TILE_H;
+constexpr int BIN_RECORDS = 256;
+constexpr int ROUND = 2 * TILE_THREADS;
+// The cells of first taps (y0, x0) whose taps can land on a tile: its rows
+// and columns, two before them and one after.
+constexpr int CELLS_W = TILE_W + 3;
+constexpr int CELLS_H = TILE_H + 3;
+// A cell's slots of a round kept in place; a round with more in a cell
+// lists every cell's slots, and a list of more than SHORT_LIST is put in
+// order by its slots' ranks, not by its cell's thread.
+constexpr int CELL_SLOTS = 4;
+constexpr int SHORT_LIST = 32;
+constexpr unsigned NO_TILE = 0xffffffffu;
+static_assert(BIN_RECORDS == TILE_THREADS, "a record a thread");
+static_assert(CELLS_W * CELLS_H <= 2 * TILE_THREADS, "two cells a thread");
 
 // Tap k's bilinear weight, as warp_fwd weighs it.
 __device__ __forceinline__ float tap_weight(float wx, float wy, int k) {
@@ -305,195 +351,459 @@ __device__ __forceinline__ float tap_weight(float wx, float wy, int k) {
   }
 }
 
-// The weight of the entry with key 4 p + k of image b.
-__device__ __forceinline__ float key_weight(const float* coords, int b, int per_image,
-                                            int key, int h, int w, int border) {
-  const float2 xy = __ldg(reinterpret_cast<const float2*>(coords) +
-                          (size_t)b * per_image + (key >> 2));
-  const Taps t = make_taps(xy.x, xy.y, h, w, border);
-  return tap_weight(t.wx, t.wy, key & 3);
-}
-
 template <typename TO> __device__ __forceinline__ TO to_out(float v);
 template <> __device__ __forceinline__ float to_out<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// counts[b h w]: the taps that land on each pixel.
-__global__ void __launch_bounds__(THREADS)
-image_grad_count_kernel(const float* __restrict__ coords, int* __restrict__ counts,
-                        long long n_out, int per_image, int h, int w, int border) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n_out) return;
-  const int b = (int)(i / per_image);
-  const Taps t = make_taps(coords[2 * i], coords[2 * i + 1], h, w, border);
-  int* cnt = counts + (size_t)b * h * w;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int q;
-    if (tap_target(t, k, &q)) atomicAdd(cnt + q, 1);
-  }
+__device__ __forceinline__ void sort2(unsigned& a, unsigned& b) {
+  const unsigned lo = min(a, b);
+  b = max(a, b);
+  a = lo;
 }
 
-// keys[offsets[q] ..]: the keys 4 p + k of q's entries; fill[q] counts the
-// slots taken (zeroed by the caller).
-__global__ void __launch_bounds__(THREADS)
-image_grad_place_kernel(const float* __restrict__ coords, const int* __restrict__ offsets,
-                        int* __restrict__ fill, int* __restrict__ keys, long long n_out,
-                        int per_image, int h, int w, int border) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n_out) return;
-  const int b = (int)(i / per_image);
-  const int p = (int)(i - (long long)b * per_image);
-  const Taps t = make_taps(coords[2 * i], coords[2 * i + 1], h, w, border);
-  const int base = b * h * w;
+__device__ __forceinline__ void sort2(int& a, int& b) {
+  const int lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+// Eight ints in increasing order (a network of 19 comparators).
+__device__ __forceinline__ void sort8(int (&e)[8]) {
+  sort2(e[0], e[2]), sort2(e[1], e[3]), sort2(e[4], e[6]), sort2(e[5], e[7]);
+  sort2(e[0], e[4]), sort2(e[1], e[5]), sort2(e[2], e[6]), sort2(e[3], e[7]);
+  sort2(e[0], e[1]), sort2(e[2], e[3]), sort2(e[4], e[5]), sort2(e[6], e[7]);
+  sort2(e[2], e[4]), sort2(e[3], e[5]);
+  sort2(e[1], e[4]), sort2(e[3], e[6]);
+  sort2(e[1], e[2]), sort2(e[3], e[4]), sort2(e[5], e[6]);
+}
+
+// Exclusive prefix sum of v over the block's N threads in order, and in
+// *total the sum. Every thread of the block calls it; scratch holds N / 32
+// ints.
+template <int N>
+__device__ __forceinline__ int block_scan(int v, int* total, int* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int q;
-    if (tap_target(t, k, &q)) {
-      const int slot = atomicAdd(fill + base + q, 1);
-      keys[offsets[base + q] + slot] = 4 * p + k;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int k = 0; k < N / 32; ++k) {
+    const int s = scratch[k];
+    before += k < warp ? s : 0;
+    all += s;
+  }
+  __syncthreads();
+  *total = all;
+  return before + x - v;
+}
+
+// Whether tap k of t counts and lands on the tile whose first row and
+// column are y_lo and x_lo.
+__device__ __forceinline__ bool tap_in_tile(const Taps& t, int k, int y_lo, int x_lo) {
+  const int y = k < 2 ? t.cy0 : t.cy1, x = (k & 1) ? t.cx1 : t.cx0;
+  const float m = k == 0 ? t.m00 : (k == 1 ? t.m01 : (k == 2 ? t.m10 : t.m11));
+  return m != 0.f && y >= y_lo && y < y_lo + TILE_H && x >= x_lo && x < x_lo + TILE_W;
+}
+
+// Place: each warp writes one record (warp, lanes) into the bin of each
+// tile that a tap of one of its lanes lands on; fill[tile] counts the
+// records (zeroed by the launcher), and a bin keeps the first BIN_RECORDS.
+// The warp finds its tiles first, lane i keeping the i-th, and then they
+// take their slots together: one atomic's round trip a warp, not one a tile.
+__global__ void __launch_bounds__(THREADS)
+image_grad_place_kernel(const float* __restrict__ coords, int* __restrict__ fill,
+                        int2* __restrict__ records, long long n_out, int per_image, int h,
+                        int w, int border, int tiles_x, int tiles_img) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  unsigned v0 = NO_TILE, v1 = NO_TILE, v2 = NO_TILE, v3 = NO_TILE;
+  if (i < n_out) {
+    const unsigned b = (unsigned)i / (unsigned)per_image;  // n_out <= INT_MAX
+    const float2 xy = __ldg(reinterpret_cast<const float2*>(coords) + i);
+    const Taps t = make_taps(xy.x, xy.y, h, w, border);
+    // the taps' tiles: rows of tiles r0 <= r1, columns c0 <= c1
+    const unsigned r0 = b * tiles_img + (unsigned)t.cy0 / TILE_H * tiles_x;
+    const unsigned r1 = b * tiles_img + (unsigned)t.cy1 / TILE_H * tiles_x;
+    const unsigned c0 = (unsigned)t.cx0 / TILE_W, c1 = (unsigned)t.cx1 / TILE_W;
+    v0 = t.m00 != 0.f ? r0 + c0 : NO_TILE;
+    v1 = t.m01 != 0.f ? r0 + c1 : NO_TILE;
+    v2 = t.m10 != 0.f ? r1 + c0 : NO_TILE;
+    v3 = t.m11 != 0.f ? r1 + c1 : NO_TILE;
+    sort2(v0, v1);
+    sort2(v2, v3);
+    sort2(v0, v2);
+    sort2(v1, v3);
+    sort2(v1, v2);
+    // drop repeats (each follows its equal)
+    if (v3 == v2) v3 = NO_TILE;
+    if (v2 == v1) v2 = v3, v3 = NO_TILE;
+    if (v1 == v0) v1 = v2, v2 = v3, v3 = NO_TILE;
+  }
+  const int warp_id = (int)(i >> 5);
+  unsigned my_tile = NO_TILE, my_lanes = 0;
+  int found = 0;  // the same in every lane
+  for (;;) {
+    // the warp's next tile in increasing order, and its lanes
+    const unsigned tile = __reduce_min_sync(0xffffffffu, v0);
+    if (tile != NO_TILE) {
+      const unsigned lanes = __ballot_sync(0xffffffffu, v0 == tile);
+      if (v0 == tile) v0 = v1, v1 = v2, v2 = v3, v3 = NO_TILE;
+      if (lane == found) {
+        my_tile = tile;
+        my_lanes = lanes;
+      }
+      ++found;
+    }
+    if (tile == NO_TILE || found == 32) {
+      if (my_tile != NO_TILE) {
+        const int slot = atomicAdd(fill + my_tile, 1);
+        if (slot < BIN_RECORDS)
+          records[(size_t)my_tile * BIN_RECORDS + slot] = make_int2(warp_id, (int)my_lanes);
+      }
+      if (tile == NO_TILE) break;
+      my_tile = NO_TILE;
+      found = 0;
     }
   }
 }
 
-// One thread per target pixel: a segment of at most SEG_SHORT entries is
-// sorted and summed here; a longer one goes on list 0 (at most SEG_MID) or
-// list 1, whose lengths are lists[0] and lists[1] and whose entries follow
-// from lists + 2 and lists + 2 + n_targets.
-template <typename TO>
-__global__ void __launch_bounds__(THREADS)
-image_grad_short_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
-                        const int* __restrict__ offsets, const int* __restrict__ keys,
-                        int* __restrict__ lists, TO* __restrict__ d_image, int n_targets,
-                        int per_image, int h, int w, int c, int border) {
-  const int q = blockIdx.x * THREADS + threadIdx.x;
-  if (q >= n_targets) return;
-  const int lo = offsets[q], n = offsets[q + 1] - lo;
-  if (n > SEG_SHORT) {
-    const int list = n > SEG_MID ? 1 : 0;
-    lists[2 + list * n_targets + atomicAdd(lists + list, 1)] = q;
-    return;
-  }
-  int ks[SEG_SHORT];
-  float ws[SEG_SHORT];
-  for (int j = 0; j < n; ++j) {      // insertion sort
-    const int key = keys[lo + j];
-    int at = j;
-    for (; at > 0 && ks[at - 1] > key; --at) ks[at] = ks[at - 1];
-    ks[at] = key;
-  }
-  const int b = q / (h * w);
-  for (int j = 0; j < n; ++j) ws[j] = key_weight(coords, b, per_image, ks[j], h, w, border);
-  const float* g = grad_out + (size_t)b * per_image * c;
-  for (int ch = 0; ch < c; ++ch) {
-    float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc = fmaf(g[(size_t)(ks[j] >> 2) * c + ch], ws[j], acc);
-    d_image[(size_t)q * c + ch] = to_out<TO>(acc);
-  }
-}
+// Sum: a block a tile, a thread a target pixel. The tile's pixel slots are
+// the output pixels with a tap on it, in increasing order: the bin's records
+// sorted by warp, each record's lanes in order; or, where the bin
+// overflowed, every output pixel of the image walked in order and kept where
+// a tap lands on the tile. A round takes ROUND slots and lists them by the
+// cell of their first tap (y0, x0), in slot order within a cell. Tap k =
+// (dy, dx) lands on (y0 + dy, x0 + dx), so a target t away from a 'border'
+// image's edge takes tap k from the slots of cell t - (dy, dx) alone: its
+// thread puts its four cells' slots in the order of the keys 4 p + k (a
+// sorting network, or a merge where a cell holds more than two). A target
+// on a 'border' image's edge, where clamped taps of more cells (and several
+// taps of one slot) meet, merges the lists of the cells that can reach it
+// and tests each tap. Each thread adds to its sums with fmaf, round after
+// round.
+template <typename TO, int C>
+__global__ void __launch_bounds__(TILE_THREADS, 6)
+image_grad_sum_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
+                      const int* __restrict__ fill, const int2* __restrict__ records,
+                      TO* __restrict__ d_image, int per_image, int h, int w, int c_rt,
+                      int border, int tiles_x, int tiles_img) {
+  constexpr int T = TILE_THREADS;
+  constexpr int CG = C > 0 ? C : 4;  // channels a pass sums
+  const int c = C > 0 ? C : c_rt;
+  __shared__ int s_warp[BIN_RECORDS];  // the records, sorted by warp
+  __shared__ unsigned s_lanes[BIN_RECORDS];
+  __shared__ int s_first[BIN_RECORDS];  // a record's first pixel slot
+  __shared__ int s_slot[ROUND];                           // a round's slots: output pixel,
+  __shared__ unsigned short s_cell[ROUND];                // cell of the first tap,
+  __shared__ float s_wx[ROUND], s_wy[ROUND];              // lerp weights
+  __shared__ float s_g[ROUND * CG];                       // and cotangent
+  __shared__ int s_n[2][2 * T];  // a cell's slots, one array a round in turn
+  __shared__ int s_at[2 * T];    // a cell's first slot in s_list
+  __shared__ unsigned short s_few[CELLS_W * CELLS_H * CELL_SLOTS];  // a cell's first slots
+  __shared__ unsigned short s_list[ROUND];  // every cell's slots (a crowded round)
+  __shared__ int s_scan[T / 32];
 
-// List 0: a block a segment, its keys sorted in shared memory.
-template <typename TO>
-__global__ void __launch_bounds__(THREADS)
-image_grad_mid_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
-                      const int* __restrict__ offsets, const int* __restrict__ keys,
-                      const int* __restrict__ lists, TO* __restrict__ d_image, int n_targets,
-                      int per_image, int h, int w, int c, int border) {
-  __shared__ int ks[SEG_MID];
-  __shared__ float ws[SEG_MID];
-  const int n_list = lists[0];
-  for (int s = blockIdx.x; s < n_list; s += gridDim.x) {
-    const int q = lists[2 + s];
-    const int lo = offsets[q], n = offsets[q + 1] - lo;
-    int n2 = SEG_SHORT;
-    while (n2 < n) n2 <<= 1;
-    for (int j = threadIdx.x; j < n2; j += THREADS) ks[j] = j < n ? keys[lo + j] : INT_MAX;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x;
+  const int b = tile / tiles_img, in_image = tile - b * tiles_img;
+  const int ty = in_image / tiles_x;
+  const int y_lo = ty * TILE_H, x_lo = (in_image - ty * tiles_x) * TILE_W;
+  const int ly = tid / TILE_W, lx = tid % TILE_W;
+  const int qy = y_lo + ly, qx = x_lo + lx;  // this thread's target
+  const bool edge = border && (qx == 0 || qx == w - 1 || qy == 0 || qy == h - 1);
+  const int cell_t = (ly + 2) * CELLS_W + lx + 2;  // the cell whose tap 0 is the target
+  const float2* crd = reinterpret_cast<const float2*>(coords) + (size_t)b * per_image;
+  const float* g = grad_out + (size_t)b * per_image * c;
+
+  // a bin's slots past its fill hold anything, and are not used
+  const int n_records = fill[tile];
+  const int2 rec = records[(size_t)tile * BIN_RECORDS + tid];
+  const bool walk = n_records > BIN_RECORDS;
+  int n_slots = 0;
+  if (!walk && n_records <= 32) {
+    // warp 0 sorts the records by warp (no two records of a bin share one),
+    // a record a lane, and finds their first slots
+    if (warp == 0) {
+      int key = lane < n_records ? rec.x : INT_MAX;
+      unsigned lanes = lane < n_records ? (unsigned)rec.y : 0u;
+#pragma unroll
+      for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          const int other = __shfl_xor_sync(0xffffffffu, key, stride);
+          const unsigned other_lanes = __shfl_xor_sync(0xffffffffu, lanes, stride);
+          const bool low = (lane & stride) == 0, ascending = (lane & size) == 0;
+          if (low == ascending ? other < key : other > key) {
+            key = other;
+            lanes = other_lanes;
+          }
+        }
+      const int n = __popc(lanes);
+      int upto = n;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, upto, d);
+        if (lane >= d) upto += y;
+      }
+      s_warp[lane] = key;
+      s_lanes[lane] = lanes;
+      s_first[lane] = upto - n;
+      if (lane == 31) s_scan[0] = upto;
+    }
     __syncthreads();
-    for (int size = 2; size <= n2; size <<= 1) {         // bitonic sort, ascending
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int j = threadIdx.x; j < n2; j += THREADS) {
-          const int other = j ^ stride;
-          if (other > j) {
-            const int a = ks[j], z = ks[other];
-            if ((a > z) == ((j & size) == 0)) {
-              ks[j] = z;
-              ks[other] = a;
+    n_slots = s_scan[0];
+  } else if (!walk) {
+    // each record at its rank by warp
+    if (tid < n_records) s_first[tid] = rec.x;
+    __syncthreads();
+    if (tid < n_records) {
+      int rank = 0;
+      for (int u = 0; u < n_records; ++u) rank += s_first[u] < rec.x;
+      s_warp[rank] = rec.x;
+      s_lanes[rank] = (unsigned)rec.y;
+    }
+    __syncthreads();
+    const int first =
+        block_scan<T>(tid < n_records ? __popc(s_lanes[tid]) : 0, &n_slots, s_scan);
+    if (tid < n_records) s_first[tid] = first;
+    __syncthreads();
+  }
+  const int rounds = ((walk ? per_image : n_slots) + ROUND - 1) / ROUND;
+
+  for (int c0 = 0; c0 < c; c0 += CG) {
+    float acc[CG];
+#pragma unroll
+    for (int ch = 0; ch < CG; ++ch) acc[ch] = 0.f;
+    // (the first round's atomics come after a barrier)
+    s_n[0][tid] = s_n[0][tid + T] = 0;
+    for (int round = 0; round < rounds; ++round) {
+      const int s0 = round * ROUND;
+      int* count = s_n[round & 1];
+      // the next round's counts (the last round's were read before its end)
+      s_n[(round + 1) & 1][tid] = s_n[(round + 1) & 1][tid + T] = 0;
+      int n_round;
+      if (walk) {
+        // pixels s0 + 2 tid and s0 + 2 tid + 1, kept where a tap lands on the tile
+        int p[2];
+        bool has[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          p[j] = s0 + 2 * tid + j;
+          has[j] = false;
+          if (p[j] < per_image) {
+            const float2 xy = __ldg(crd + p[j]);
+            const Taps t = make_taps(xy.x, xy.y, h, w, border);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) has[j] |= tap_in_tile(t, k, y_lo, x_lo);
+          }
+        }
+        const int at = block_scan<T>((int)has[0] + (int)has[1], &n_round, s_scan);
+        if (n_round == 0) continue;  // the same in every thread
+        if (has[0]) s_slot[at] = p[0];
+        if (has[1]) s_slot[at + (int)has[0]] = p[1];
+      } else {
+        // a warp a record: its lanes that fall in this round
+        n_round = min(ROUND, n_slots - s0);
+        for (int r = warp; r < n_records; r += T / 32) {
+          const int first = s_first[r] - s0;
+          const unsigned m = s_lanes[r];
+          if (first >= ROUND || first + __popc(m) <= 0) continue;
+          const int s = first + __popc(m & ((1u << lane) - 1u));
+          if (((m >> lane) & 1u) && s >= 0 && s < ROUND)
+            s_slot[s] = s_warp[r] * 32 + lane - b * per_image;
+        }
+      }
+      __syncthreads();
+      // each slot's cell, weights and cotangent, and its arrival in its cell;
+      // a cell's first CELL_SLOTS slots are kept in place
+      int cell[2], pos[2];
+      bool crowded = false;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int s = tid + j * T;
+        cell[j] = -1;
+        if (s < n_round) {
+          const int p = s_slot[s];
+          const float2 xy = __ldg(crd + p);
+          const Taps t = make_taps(xy.x, xy.y, h, w, border);
+          cell[j] = (t.y0 - y_lo + 2) * CELLS_W + (t.x0 - x_lo + 2);
+          s_cell[s] = (unsigned short)cell[j];
+          s_wx[s] = t.wx;
+          s_wy[s] = t.wy;
+          const float* gp = g + (size_t)p * c + c0;
+#pragma unroll
+          for (int ch = 0; ch < CG; ++ch)
+            s_g[s * CG + ch] = (C > 0 || c0 + ch < c) ? __ldg(gp + ch) : 0.f;
+          pos[j] = atomicAdd(count + cell[j], 1);
+          if (pos[j] < CELL_SLOTS) s_few[cell[j] * CELL_SLOTS + pos[j]] = (unsigned short)s;
+          else crowded = true;
+        }
+      }
+      // each cell's slots in slot order: in place, or (a crowded round) all
+      // listed in s_list, a short list sorted by its cell's thread and a long
+      // one's slots each finding their rank
+      const bool listed_all = __syncthreads_or(crowded);
+      const int n_a = count[2 * tid], n_b = count[2 * tid + 1];
+      int at = 0;
+      unsigned short* lists = s_few;
+      if (listed_all) {
+        lists = s_list;
+        int n_listed;
+        at = block_scan<T>(n_a + n_b, &n_listed, s_scan);
+        s_at[2 * tid] = at;
+        s_at[2 * tid + 1] = at + n_a;
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (cell[j] >= 0) s_list[s_at[cell[j]] + pos[j]] = (unsigned short)(tid + j * T);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int n = m ? n_b : n_a;
+        const int lo = listed_all ? at + (m ? n_a : 0) : (2 * tid + m) * CELL_SLOTS;
+        if (n <= SHORT_LIST) {
+          for (int u = lo + 1; u < lo + n; ++u) {
+            const unsigned short v = lists[u];
+            int x = u;
+            for (; x > lo && lists[x - 1] > v; --x) lists[x] = lists[x - 1];
+            lists[x] = v;
+          }
+        }
+      }
+      if (listed_all) {
+        int dest[2];
+        bool any_long = false;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          dest[j] = -1;
+          if (cell[j] >= 0 && count[cell[j]] > SHORT_LIST) {
+            const int lo = s_at[cell[j]], hi = lo + count[cell[j]];
+            const int s = tid + j * T;
+            int rank = 0;
+            for (int u = lo; u < hi; ++u) rank += s_list[u] < s;
+            dest[j] = lo + rank;
+            any_long = true;
+          }
+        }
+        if (__syncthreads_or(any_long)) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            if (dest[j] >= 0) s_list[dest[j]] = (unsigned short)(tid + j * T);
+        }
+      }
+      __syncthreads();
+      auto first_of = [&](int cl) { return listed_all ? s_at[cl] : cl * CELL_SLOTS; };
+      if (!edge) {
+        // the lists of cells t, t - (0,1), t - (1,0), t - (1,1), whose slots
+        // land on t with taps 0, 1, 2, 3: entries 4 slot + k in increasing
+        // order, from a sorting network where each list holds at most two,
+        // else merged
+        int hd[4], end[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int cl = cell_t - (k >> 1) * CELLS_W - (k & 1);
+          hd[k] = first_of(cl);
+          end[k] = hd[k] + count[cl];
+        }
+        if (end[0] - hd[0] <= 2 && end[1] - hd[1] <= 2 && end[2] - hd[2] <= 2 &&
+            end[3] - hd[3] <= 2) {
+          int e[8];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            e[2 * k] = hd[k] < end[k] ? 4 * lists[hd[k]] + k : INT_MAX;
+            e[2 * k + 1] = hd[k] + 1 < end[k] ? 4 * lists[hd[k] + 1] + k : INT_MAX;
+          }
+          sort8(e);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (e[i] == INT_MAX) break;
+            const int slot = e[i] >> 2;
+            const float weight = tap_weight(s_wx[slot], s_wy[slot], e[i] & 3);
+#pragma unroll
+            for (int ch = 0; ch < CG; ++ch)
+              acc[ch] = fmaf(s_g[slot * CG + ch], weight, acc[ch]);
+          }
+        } else {
+          int head[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) head[k] = hd[k] < end[k] ? lists[hd[k]] : ROUND;
+          for (;;) {
+            int slot = head[0], k = 0;
+#pragma unroll
+            for (int i = 1; i < 4; ++i)
+              if (head[i] < slot) {
+                slot = head[i];
+                k = i;
+              }
+            if (slot == ROUND) break;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (i == k) {
+                ++hd[i];
+                head[i] = hd[i] < end[i] ? lists[hd[i]] : ROUND;
+              }
+            const float weight = tap_weight(s_wx[slot], s_wy[slot], k);
+#pragma unroll
+            for (int ch = 0; ch < CG; ++ch)
+              acc[ch] = fmaf(s_g[slot * CG + ch], weight, acc[ch]);
+          }
+        }
+      } else {
+        // the cells whose clamped taps can reach the target (at most 4 x 4):
+        // their lists merged by slot, each slot's taps tested against it
+        const int cx_lo = (qx == 0 ? -2 : qx - 1) - x_lo + 2;
+        const int cx_hi = (qx == w - 1 ? w : qx) - x_lo + 2;
+        const int cy_lo = (qy == 0 ? -2 : qy - 1) - y_lo + 2;
+        const int cy_hi = (qy == h - 1 ? h : qy) - y_lo + 2;
+        int cur[16], stop[16], n_lists = 0;
+        for (int cy = cy_lo; cy <= cy_hi; ++cy)
+          for (int cx = cx_lo; cx <= cx_hi; ++cx) {
+            const int cl = cy * CELLS_W + cx;
+            if (count[cl] > 0) {
+              cur[n_lists] = first_of(cl);
+              stop[n_lists] = cur[n_lists] + count[cl];
+              ++n_lists;
+            }
+          }
+        for (;;) {
+          int slot = ROUND, from = -1;
+          for (int i = 0; i < n_lists; ++i)
+            if (cur[i] < stop[i] && lists[cur[i]] < slot) {
+              slot = lists[cur[i]];
+              from = i;
+            }
+          if (from < 0) break;
+          ++cur[from];
+          const int cl = s_cell[slot];
+          const int ay = y_lo - 2 + cl / CELLS_W, ax = x_lo - 2 + cl % CELLS_W;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (clampi(ay + (k >> 1), 0, h - 1) == qy && clampi(ax + (k & 1), 0, w - 1) == qx) {
+              const float weight = tap_weight(s_wx[slot], s_wy[slot], k);
+#pragma unroll
+              for (int ch = 0; ch < CG; ++ch)
+                acc[ch] = fmaf(s_g[slot * CG + ch], weight, acc[ch]);
             }
           }
         }
-        __syncthreads();
       }
+      // the next round (or pass) writes what this one read
+      if (round + 1 < rounds || c0 + CG < c) __syncthreads();
     }
-    const int b = q / (h * w);
-    for (int j = threadIdx.x; j < n; j += THREADS)
-      ws[j] = key_weight(coords, b, per_image, ks[j], h, w, border);
-    __syncthreads();
-    const float* g = grad_out + (size_t)b * per_image * c;
-    for (int ch = threadIdx.x; ch < c; ch += THREADS) {
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j) acc = fmaf(g[(size_t)(ks[j] >> 2) * c + ch], ws[j], acc);
-      d_image[(size_t)q * c + ch] = to_out<TO>(acc);
-    }
-    __syncthreads();
-  }
-}
-
-// List 1: a block a segment. The block walks the image's output pixels in
-// order, THREADS at a time, and keeps the entries that land on q in key
-// order (an exclusive scan of each pixel's count); the channels' threads sum
-// each chunk's entries after those of the chunks before it. Channels beyond
-// THREADS take further walks.
-template <typename TO>
-__global__ void __launch_bounds__(THREADS)
-image_grad_long_kernel(const float* __restrict__ coords, const float* __restrict__ grad_out,
-                       const int* __restrict__ lists, TO* __restrict__ d_image, int n_targets,
-                       int per_image, int h, int w, int c, int border) {
-  __shared__ int pos[THREADS];
-  __shared__ int ek[4 * THREADS];
-  __shared__ float ew[4 * THREADS];
-  const int n_list = lists[1];
-  for (int s = blockIdx.x; s < n_list; s += gridDim.x) {
-    const int q = lists[2 + n_targets + s];
-    const int b = q / (h * w), local = q - b * (h * w);
-    const float2* crd = reinterpret_cast<const float2*>(coords) + (size_t)b * per_image;
-    const float* g = grad_out + (size_t)b * per_image * c;
-    for (int c0 = 0; c0 < c; c0 += THREADS) {
-      const int ch = c0 + threadIdx.x;
-      float acc = 0.f;
-      for (int p0 = 0; p0 < per_image; p0 += THREADS) {
-        const int p = p0 + threadIdx.x;
-        const bool live = p < per_image;
-        const float2 xy = live ? __ldg(crd + p) : make_float2(0.f, 0.f);
-        const Taps t = make_taps(xy.x, xy.y, h, w, border);
-        int hits[4], n_hit = 0;
+    if (qy < h && qx < w) {
+      TO* o = d_image + ((size_t)b * h * w + (size_t)qy * w + qx) * c + c0;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          int target;
-          if (live && tap_target(t, k, &target) && target == local) hits[n_hit++] = k;
-        }
-        pos[threadIdx.x] = n_hit;
-        __syncthreads();
-        for (int stride = 1; stride < THREADS; stride <<= 1) {   // inclusive scan
-          const int add = (int)threadIdx.x >= stride ? pos[threadIdx.x - stride] : 0;
-          __syncthreads();
-          pos[threadIdx.x] += add;
-          __syncthreads();
-        }
-        const int total = pos[THREADS - 1];
-        const int first = pos[threadIdx.x] - n_hit;
-        for (int j = 0; j < n_hit; ++j) {
-          ek[first + j] = 4 * p + hits[j];
-          ew[first + j] = tap_weight(t.wx, t.wy, hits[j]);
-        }
-        __syncthreads();
-        if (ch < c)
-          for (int j = 0; j < total; ++j)
-            acc = fmaf(g[(size_t)(ek[j] >> 2) * c + ch], ew[j], acc);
-        __syncthreads();
-      }
-      if (ch < c) d_image[(size_t)q * c + ch] = to_out<TO>(acc);
+      for (int ch = 0; ch < CG; ++ch)
+        if (C > 0 || c0 + ch < c) o[ch] = to_out<TO>(acc[ch]);
     }
   }
 }
@@ -582,34 +892,44 @@ int launch_bwd(const T* image, const float* coords, const float* grad_out,
   return (int)cudaGetLastError();
 }
 
-// Offsets into the key array and target pixels are ints: at most INT_MAX
-// entries (four a pixel) and INT_MAX - 1 pixels.
+long long tiles_of(int b, int h, int w) {
+  return (long long)b * ((h + TILE_H - 1) / TILE_H) * ((w + TILE_W - 1) / TILE_W);
+}
+
+// An output pixel's index and a tile's are ints.
 bool bad_image_grad(int b, int h, int w, int c, int ho, int wo, int padding) {
   return bad_shape(b, h, w, c, ho, wo) || (padding != 0 && padding != 1) ||
-         4LL * b * ho * wo > INT_MAX || (long long)b * h * w >= INT_MAX;
+         (long long)b * ho * wo > INT_MAX || tiles_of(b, h, w) > INT_MAX;
 }
 
 template <typename TO>
-int launch_image_grad(const float* coords, const float* grad_out, const int* offsets,
-                      int* fill, int* keys, int* lists, TO* d_image, int b, int h, int w,
-                      int c, int ho, int wo, int padding, void* stream) {
+int launch_image_grad(const float* coords, const float* grad_out, int* fill,
+                      int2* records, TO* d_image, int b, int h, int w, int c, int ho,
+                      int wo, int padding, void* stream) {
   if (bad_image_grad(b, h, w, c, ho, wo, padding)) return (int)cudaErrorInvalidValue;
   const long long n = (long long)b * ho * wo;
-  const int n_targets = b * h * w;
-  if (n_targets == 0) return 0;
+  const int n_tiles = (int)tiles_of(b, h, w);
+  if (n_tiles == 0) return 0;
+  const int tiles_x = (w + TILE_W - 1) / TILE_W, tiles_img = n_tiles / b;
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(fill, 0, sizeof(int) * (size_t)n_tiles, st);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     image_grad_place_kernel<<<(unsigned)blocks_for(n), THREADS, 0, st>>>(
-        coords, offsets, fill, keys, n, ho * wo, h, w, padding);
-    const cudaError_t err = cudaGetLastError();
+        coords, fill, records, n, ho * wo, h, w, padding, tiles_x, tiles_img);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  image_grad_short_kernel<TO><<<(unsigned)blocks_for(n_targets), THREADS, 0, st>>>(
-      coords, grad_out, offsets, keys, lists, d_image, n_targets, ho * wo, h, w, c, padding);
-  image_grad_mid_kernel<TO><<<LIST_BLOCKS, THREADS, 0, st>>>(
-      coords, grad_out, offsets, keys, lists, d_image, n_targets, ho * wo, h, w, c, padding);
-  image_grad_long_kernel<TO><<<LIST_BLOCKS, THREADS, 0, st>>>(
-      coords, grad_out, lists, d_image, n_targets, ho * wo, h, w, c, padding);
+  const int per_image = ho * wo;
+  if (c == 3)
+    image_grad_sum_kernel<TO, 3><<<n_tiles, TILE_THREADS, 0, st>>>(
+        coords, grad_out, fill, records, d_image, per_image, h, w, c, padding, tiles_x, tiles_img);
+  else if (c == 1)
+    image_grad_sum_kernel<TO, 1><<<n_tiles, TILE_THREADS, 0, st>>>(
+        coords, grad_out, fill, records, d_image, per_image, h, w, c, padding, tiles_x, tiles_img);
+  else
+    image_grad_sum_kernel<TO, 0><<<n_tiles, TILE_THREADS, 0, st>>>(
+        coords, grad_out, fill, records, d_image, per_image, h, w, c, padding, tiles_x, tiles_img);
   return (int)cudaGetLastError();
 }
 
@@ -675,39 +995,24 @@ extern "C" int warp_bwd_bf16(const void* image, const float* coords,
                     grad_out, d_coords, b, h, w, c, ho, wo, padding, stream);
 }
 
-// d image of an image [b, h, w, c], in two calls around the caller's scan.
-// warp_bwd_image_count adds each tap's 1 to counts [b h w] (int32, zeroed).
-// warp_bwd_image takes offsets [b h w + 1], the exclusive scan of those
-// counts, and scratch: fill [b h w] (int32, zeroed), keys [4 b ho wo] and
-// lists [2 + 2 b h w] (int32, the first two zeroed). d_image is float32, or
-// bfloat16 for warp_bwd_image_bf16; every element of it is written.
-extern "C" int warp_bwd_image_count(const float* coords, int* counts, int b, int h,
-                                    int w, int ho, int wo, int padding,
-                                    void* stream) {
-  if (bad_image_grad(b, h, w, 1, ho, wo, padding)) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)b * ho * wo;
-  if (n == 0) return 0;
-  image_grad_count_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      coords, counts, n, ho * wo, h, w, padding);
-  return (int)cudaGetLastError();
+// d image of an image [b, h, w, c]: the launcher zeroes fill, then places
+// and sums. Scratch: fill [b tiles_y tiles_x] and records [b tiles_y tiles_x
+// BIN_RECORDS] int2 (tiles_y = ceil(h / TILE_H), tiles_x = ceil(w / TILE_W)),
+// int32, any contents. d_image is float32, or bfloat16 for
+// warp_bwd_image_bf16; every element of it is written.
+extern "C" int warp_bwd_image(const float* coords, const float* grad_out, int* fill,
+                              int* records, float* d_image, int b, int h, int w, int c,
+                              int ho, int wo, int padding, void* stream) {
+  return launch_image_grad(coords, grad_out, fill, reinterpret_cast<int2*>(records), d_image,
+                           b, h, w, c, ho, wo, padding, stream);
 }
 
-extern "C" int warp_bwd_image(const float* coords, const float* grad_out,
-                              const int* offsets, int* fill, int* keys, int* lists,
-                              float* d_image, int b, int h, int w, int c, int ho,
-                              int wo, int padding, void* stream) {
-  return launch_image_grad(coords, grad_out, offsets, fill, keys, lists, d_image, b,
-                           h, w, c, ho, wo, padding, stream);
-}
-
-extern "C" int warp_bwd_image_bf16(const float* coords, const float* grad_out,
-                                   const int* offsets, int* fill, int* keys,
-                                   int* lists, void* d_image, int b, int h, int w,
-                                   int c, int ho, int wo, int padding,
-                                   void* stream) {
-  return launch_image_grad(coords, grad_out, offsets, fill, keys, lists,
-                           static_cast<__nv_bfloat16*>(d_image), b, h, w, c, ho,
-                           wo, padding, stream);
+extern "C" int warp_bwd_image_bf16(const float* coords, const float* grad_out, int* fill,
+                                   int* records, void* d_image, int b, int h, int w, int c,
+                                   int ho, int wo, int padding, void* stream) {
+  return launch_image_grad(coords, grad_out, fill, reinterpret_cast<int2*>(records),
+                           static_cast<__nv_bfloat16*>(d_image), b, h, w, c, ho, wo,
+                           padding, stream);
 }
 
 // coords_tangent [b, ho, wo, 2] and out [b, ho, wo, c], float32: the

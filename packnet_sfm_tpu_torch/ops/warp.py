@@ -142,47 +142,57 @@ def warp_bwd_cuda(image: torch.Tensor, coords: torch.Tensor, grad_out: torch.Ten
     return d_image, d_coords
 
 
+# warp_bwd_image's tiles (csrc/warp.cu TILE_H, TILE_W) and the records a
+# tile's bin keeps (BIN_RECORDS), for the scratch the wrapper allocates.
+IMAGE_GRAD_TILE = (8, 32)
+IMAGE_GRAD_BIN_RECORDS = 256
+INT32_MAX = 2 ** 31 - 1
+
+
+def image_grad_plan(b: int, h: int, w: int, ho: int, wo: int) -> dict:
+    """The tile grid of ``warp_bwd_image`` for d image [b, h, w, C] at an
+    output grid [b, ho, wo] and its scratch in int32 elements: ``fill``, a
+    record count a tile, and ``records``, BIN_RECORDS (warp, lanes) pairs a
+    tile. Raises where an output pixel's or a tile's index leaves int32."""
+    if min(b, h, w, ho, wo) < 1:
+        raise ValueError(f"no image gradient of shape {(b, h, w)} at {(b, ho, wo)}")
+    tiles = (-(-h // IMAGE_GRAD_TILE[0]), -(-w // IMAGE_GRAD_TILE[1]))
+    n_tiles = b * tiles[0] * tiles[1]
+    if b * ho * wo > INT32_MAX or n_tiles > INT32_MAX:
+        raise ValueError(f"warp_bwd_image indexes its {b * ho * wo} output pixels and "
+                         f"{n_tiles} tiles with int32")
+    return {"tiles": tiles, "fill": n_tiles, "records": 2 * IMAGE_GRAD_BIN_RECORDS * n_tiles}
+
+
 def warp_bwd_image_cuda(coords: torch.Tensor, grad_out: torch.Tensor, image_hw,
                         dtype: torch.dtype = torch.float32,
                         padding_mode: str = "zeros") -> torch.Tensor:
     """d image [B,H,W,C] of the warp of an image of ``image_hw`` = (H, W) at
     ``coords`` [B,H',W',2] under the cotangent ``grad_out`` [B,H',W',C]
     (both float32), in ``dtype`` (float32, or bfloat16 rounded once from
-    the float32 sum): ``warp_bwd_image`` (``_bf16``), whose sums have one
-    order on every run. The exclusive scan of the per-pixel tap counts
-    between its two calls is index bookkeeping, exact in int32."""
+    the float32 sum): ``warp_bwd_image`` (``_bf16``), one launcher call of
+    three device operations whose sums have one order on every run. Its
+    scratch (``image_grad_plan``) may hold anything."""
     from packnet_sfm_tpu_torch.ops import _cuda
 
     padding = _padding_code(padding_mode)
     h, w = image_hw
     b, ho, wo, c = grad_out.shape
-    if dtype not in IMAGE_DTYPES or min(b, h, w, c, ho, wo) < 1:
+    if dtype not in IMAGE_DTYPES or c < 1:
         raise ValueError(f"no image gradient of dtype {dtype} and shape {(b, h, w, c)}")
+    plan = image_grad_plan(b, h, w, ho, wo)
     _cuda.check_tensor("coords", coords, (b, ho, wo, 2))
     _cuda.check_tensor("grad_out", grad_out, (b, ho, wo, c))
-    if 4 * b * ho * wo > 2 ** 31 - 1 or b * h * w >= 2 ** 31 - 1:
-        raise ValueError(f"warp_bwd_image indexes its {4 * b * ho * wo} taps and "
-                         f"{b * h * w} pixels with int32")
-    lib = _cuda.load("warp")
     name = _kernel("warp_bwd_image", dtype)
-    device, n_targets = coords.device, b * h * w
-    counts = torch.zeros(n_targets, dtype=torch.int32, device=device)
-    offsets = torch.zeros(n_targets + 1, dtype=torch.int32, device=device)
-    keys = torch.empty(4 * b * ho * wo, dtype=torch.int32, device=device)
-    lists = torch.empty(2 + 2 * n_targets, dtype=torch.int32, device=device)
+    launcher = getattr(_cuda.load("warp"), name)
+    device = coords.device
+    fill = torch.empty(plan["fill"], dtype=torch.int32, device=device)
+    records = torch.empty(plan["records"], dtype=torch.int32, device=device)
     d_image = torch.empty((b, h, w, c), dtype=dtype, device=device)
     with torch.cuda.device(device):
-        stream = _cuda.stream(coords)
-        err = lib.warp_bwd_image_count(coords.data_ptr(), counts.data_ptr(), b, h, w, ho, wo,
-                                       padding, stream)
-        if err == 0:
-            torch.cumsum(counts, 0, dtype=torch.int32, out=offsets[1:])
-            counts.zero_()
-            lists[:2].zero_()
-            err = getattr(lib, name)(coords.data_ptr(), grad_out.data_ptr(),
-                                     offsets.data_ptr(), counts.data_ptr(), keys.data_ptr(),
-                                     lists.data_ptr(), d_image.data_ptr(), b, h, w, c, ho,
-                                     wo, padding, stream)
+        err = launcher(coords.data_ptr(), grad_out.data_ptr(), fill.data_ptr(),
+                       records.data_ptr(), d_image.data_ptr(), b, h, w, c, ho, wo, padding,
+                       _cuda.stream(coords))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     _count(name)

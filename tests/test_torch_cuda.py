@@ -29,7 +29,8 @@ every side, exact integer positions and the corners -1/+1. Tolerances:
 values 1e-5 (images in [0, 1); only fused multiply-adds round differently);
 gradients 1e-4 of their largest magnitude (d coords sums the channels in
 another order; warp_bwd_image sums each pixel's taps in key order, one
-order on every call, which a second call must repeat bit for bit).
+order on every call, which a second call must repeat bit for bit, also
+where a tile's bin of target pixels is full and where it overflows).
 warp_jvp, the coordinate tangent, on the same cases against the plain warp
 under forward AD: 1e-4 of the tangent's largest magnitude, alone and with
 an image tangent beside it (warp_fwd of the tangent).
@@ -165,7 +166,11 @@ WARP_CASES = [((1, 12, 20, 3), (10, 16)), ((8, 48, 160, 3), (48, 160)),
               # pixel counts that are no multiple of the 256-thread block, odd ones
               # too, for C = 1, 3 (the compiled channel counts) and 4, 2 (the loop)
               ((3, 33, 71, 3), (37, 75)), ((2, 9, 11, 1), (31, 33)), ((2, 20, 12, 4), (17, 19)),
-              ((1, 6, 1, 3), (5, 300)), ((2, 16, 24, 2), (16, 24)), ((8, 96, 320, 3), (96, 320))]
+              ((1, 6, 1, 3), (5, 300)), ((2, 16, 24, 2), (16, 24)), ((8, 96, 320, 3), (96, 320)),
+              # warp_bwd_image's bins: an 8 x 32 image is one tile of targets;
+              # 64 x 128 outputs put 256 warps' records in its bin (a full bin),
+              # 64 x 130 put 260 (an overfull bin: the walk)
+              ((1, 8, 32, 3), (64, 128)), ((1, 8, 32, 3), (64, 130))]
 
 
 def _warp_inputs(shape, out_hw, device):
@@ -419,7 +424,7 @@ def test_trainer_steps_on_the_card_match_the_cpu(device):
     got = card.train_epoch(0)
     torch.cuda.synchronize()
     assert card.step == 2 and got["peak_mib"] > 0
-    assert warp.launch_counts == {"warp_fwd": 8, "warp_bwd": 8, "warp_jvp": 0}
+    assert warp.launch_counts == {"warp_fwd": 8, "warp_bwd": 8, "warp_jvp": 0, "warp_bwd_image": 0}
     want = cpu.train_epoch(0)
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-3)
     keys = sorted(start)

@@ -348,10 +348,12 @@ class _FakeWarpLib:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def launch(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         return launch
 
@@ -375,20 +377,26 @@ def fake_warp_lib(monkeypatch):
 def test_the_image_gradient_routes_to_warp_bwd_image(fake_warp_lib, dtype):
     """``_WarpCuda``'s backward with the launchers recorded: an image that
     requires a gradient reaches ``warp_bwd_image`` (``_bf16`` for a
-    bfloat16 image, whose d image comes back bfloat16) after the count pass,
-    d coords ``warp_bwd`` only where the coordinates require one."""
+    bfloat16 image, whose d image comes back bfloat16) in one launcher call,
+    with as many arguments as ``ops/_cuda.SIGNATURES`` types and the image's,
+    cotangent's and padding's ints last; d coords ``warp_bwd`` only where
+    the coordinates require one."""
+    from packnet_sfm_tpu_torch.ops import _cuda
+
     image, coords, grad = (torch.from_numpy(a) for a in _inputs(13))
     suffix = "_bf16" if dtype == torch.bfloat16 else ""
     im = image.to(dtype).requires_grad_()
-    for co, want in ((coords.clone().requires_grad_(),
-                      ["warp_bwd", "warp_bwd_image_count", "warp_bwd_image"]),
-                     (coords, ["warp_bwd_image_count", "warp_bwd_image"])):
+    for co, want in ((coords.clone().requires_grad_(), ["warp_bwd", "warp_bwd_image"]),
+                     (coords, ["warp_bwd_image"])):
         fake_warp_lib.calls.clear()
+        fake_warp_lib.args.clear()
         im.grad = None
         out = twarp._WarpCuda.apply(im, co, "border")
         (out * grad).sum().backward()
-        assert fake_warp_lib.calls == ["warp_fwd" + suffix] + [
-            n if n.endswith("count") else n + suffix for n in want]
+        assert fake_warp_lib.calls == ["warp_fwd" + suffix] + [n + suffix for n in want]
+        for name, args in zip(fake_warp_lib.calls, fake_warp_lib.args):
+            assert len(args) == len(_cuda.SIGNATURES["warp"][name]), name
+        assert fake_warp_lib.args[-1][-8:] == (B, H, W, C, HO, WO, 1, 0)
         assert im.grad.dtype == dtype and im.grad.shape == im.shape
         assert (co.grad is not None) == co.requires_grad
     counts = twarp.bf16_launch_counts if suffix else twarp.launch_counts
@@ -418,3 +426,97 @@ def test_the_image_tangent_routes_to_warp_fwd(fake_warp_lib):
             torch.func.jvp(lambda i, c: twarp._WarpCuda.apply(i, c, "zeros"), (im, coords),
                            tangents)
         assert fake_warp_lib.calls == want
+
+
+@pytest.mark.parametrize("b,h,w,ho,wo,tiles", [
+    (8, 192, 640, 192, 640, (24, 20)),     # the flagship's finest scale, whole tiles
+    (8, 24, 80, 24, 80, (3, 3)),           # its coarsest: 80 columns cut the third tile
+    (3, 33, 71, 37, 75, (5, 3)),           # ragged in both directions
+    (1, 1, 1, 300, 500, (1, 1)),           # a 1 x 1 image, 150000 outputs on it
+    (2, 6, 10, 48, 160, (1, 1)),           # 128 outputs a pixel, one tile an image
+    (1, 384, 1280, 2, 3, (48, 40)),        # far more pixels than outputs
+    (1, 8, 32, 64, 130, (1, 1)),           # one tile, 260 warps: a bin past BIN_RECORDS
+])
+def test_image_grad_plan_tiles_and_scratch(b, h, w, ho, wo, tiles):
+    """The wrapper's tile grid covers the image with ceil(H / 8) x ceil(W /
+    32) tiles an image, and its scratch is a record count a tile and
+    BIN_RECORDS int32 pairs a tile, whatever the output grid."""
+    plan = twarp.image_grad_plan(b, h, w, ho, wo)
+    tile_h, tile_w = twarp.IMAGE_GRAD_TILE
+    assert plan["tiles"] == tiles
+    assert (tiles[0] - 1) * tile_h < h <= tiles[0] * tile_h
+    assert (tiles[1] - 1) * tile_w < w <= tiles[1] * tile_w
+    assert plan["fill"] == b * tiles[0] * tiles[1]
+    assert plan["records"] == 2 * twarp.IMAGE_GRAD_BIN_RECORDS * plan["fill"]
+
+
+@pytest.mark.parametrize("b,h,w,ho,wo,fits", [
+    (1, 8, 8, 2 ** 16, 2 ** 15 - 1, True),        # 2^31 - 2^16 output pixels
+    (2, 8, 8, 2 ** 15, 2 ** 15, False),           # 2^31: one past an int32 index
+    (1, 8, 8, 46341, 46341, False),               # 2147488281 output pixels
+    (2 ** 20, 8, 32 * 2 ** 11 - 31, 1, 1, False),  # 2^31 tiles
+    (2 ** 19, 8, 32 * (2 ** 12 - 1) - 31, 1, 1, True),  # 2^31 - 2^19 tiles
+])
+def test_image_grad_plan_int32_limits(b, h, w, ho, wo, fits):
+    """An output pixel's index and a tile's index are int32 in the kernels:
+    the plan refuses a call past either, before anything is allocated."""
+    if fits:
+        plan = twarp.image_grad_plan(b, h, w, ho, wo)
+        assert plan["fill"] <= 2 ** 31 - 1 and b * ho * wo <= 2 ** 31 - 1
+    else:
+        with pytest.raises(ValueError, match="int32"):
+            twarp.image_grad_plan(b, h, w, ho, wo)
+
+
+@pytest.mark.parametrize("shape", [(0, 4, 4, 3, 3), (1, 0, 4, 3, 3), (1, 4, 4, 3, 0)])
+def test_image_grad_plan_refuses_empty_shapes(shape):
+    with pytest.raises(ValueError, match="no image gradient"):
+        twarp.image_grad_plan(*shape)
+
+
+def test_image_grad_constants_match_the_kernel_source():
+    """The wrapper sizes the scratch with the tile and bin of
+    ``csrc/warp.cu``: the same numbers on both sides."""
+    import re
+    from pathlib import Path
+
+    source = (Path(twarp.__file__).resolve().parent.parent / "csrc" / "warp.cu").read_text()
+    found = {k: int(re.search(rf"constexpr int {k} = (\d+);", source).group(1))
+             for k in ("TILE_H", "TILE_W", "BIN_RECORDS")}
+    assert (found["TILE_H"], found["TILE_W"]) == twarp.IMAGE_GRAD_TILE
+    assert found["BIN_RECORDS"] == twarp.IMAGE_GRAD_BIN_RECORDS
+    # a record a thread of a block of a tile's targets
+    assert found["TILE_H"] * found["TILE_W"] == found["BIN_RECORDS"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,ho,wo", [(12, 20, 10, 16), (1, 1, 7, 9), (33, 71, 2, 3)])
+def test_warp_bwd_image_allocates_the_planned_scratch(fake_warp_lib, monkeypatch, dtype,
+                                                      h, w, ho, wo):
+    """One launcher call, given fill and records of the plan's sizes (int32,
+    any contents: nothing zeroed on the host) and d image in the asked
+    dtype; an image shape past the int32 limits is refused before it."""
+    sizes = []
+    real_empty = torch.empty
+
+    def spy(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        sizes.append((tuple(out.shape), out.dtype))
+        return out
+
+    monkeypatch.setattr(torch, "empty", spy)
+    monkeypatch.setattr(torch, "zeros", None)
+    coords = torch.rand((2, ho, wo, 2))
+    grad = torch.rand((2, ho, wo, 3))
+    d_image = twarp.warp_bwd_image_cuda(coords, grad, (h, w), dtype, "zeros")
+    plan = twarp.image_grad_plan(2, h, w, ho, wo)
+    assert sizes == [((plan["fill"],), torch.int32), ((plan["records"],), torch.int32),
+                     ((2, h, w, 3), dtype)]
+    assert d_image.shape == (2, h, w, 3) and d_image.dtype == dtype
+    assert fake_warp_lib.calls == ["warp_bwd_image" + ("_bf16" if dtype == torch.bfloat16
+                                                       else "")]
+    assert fake_warp_lib.args[0][5:] == (2, h, w, 3, ho, wo, 0, 0)
+    with pytest.raises(ValueError, match="int32"):
+        twarp.warp_bwd_image_cuda(torch.rand((1, 1, 1, 2)), torch.rand((1, 1, 1, 3)),
+                                  (8, 2 ** 36), dtype)
+    assert len(fake_warp_lib.calls) == 1
