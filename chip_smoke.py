@@ -2682,8 +2682,10 @@ OVERFIT_KITTI_LAUNCHES = {"warp_fwd": KITTI_SCALES, "warp_bwd": KITTI_SCALES}
 # the supervised recipe's bar, as the JAX package's tests/test_overfit_bar.py
 # pins it: epoch 1's depth_gt abs_rel below this, and below epoch 0's
 SUPERVISED_BAR = 0.42
-# SAN's model_loss on the card against the CPU: batch 1 at this size
+# SAN's model_loss on the card against the CPU: batch 1 at this size, ground
+# truth on SAN_GT_DENSITY of the pixels and input depth on SAN_INPUT_DENSITY
 SAN_CPU_HW = (64, 96)
+SAN_GT_DENSITY, SAN_INPUT_DENSITY = 0.16, 0.04
 # PackNet-SAN's 352x1216 KITTI crop in the form that both packages read: a
 # 2-tuple (width, height) centred on each frame (the tree's frames are
 # 370x1226 to 376x1241)
@@ -2712,6 +2714,22 @@ def san_kitti_config(root, checkpoint=None):
     return cfg
 
 
+def san_batch(h: int, w: int):
+    """A host batch of PackNet-SAN's train step: a Synthetic rgb [1, h, w,
+    3], its depth at SAN_GT_DENSITY as 'depth' and at SAN_INPUT_DENSITY as
+    'input_depth'."""
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset
+
+    sample = SyntheticSfmDataset(length=1, height=h, width=w, seed=0, back_context=0,
+                                 forward_context=0, depth_density=SAN_GT_DENSITY)[0]
+    depth = sample["depth"][None]
+    keep = np.random.default_rng(0).uniform(size=depth.shape) < SAN_INPUT_DENSITY / SAN_GT_DENSITY
+    return {"rgb": sample["rgb"][None], "depth": depth,
+            "input_depth": (depth * keep).astype(np.float32)}
+
+
 def san_cpu_reference(model, device):
     """PackNet-SAN's model_loss at SAN_CPU_HW, batch 1, on the card and on
     the CPU with the same weights, in the bfloat16 policy: each loss term
@@ -2725,9 +2743,8 @@ def san_cpu_reference(model, device):
     from packnet_sfm_tpu_torch.core.config import SAN_KITTI, config_from_dict
     from packnet_sfm_tpu_torch.engine.factory import setup_model
     from packnet_sfm_tpu_torch.models.sfm import model_loss
-    from packnet_sfm_tpu_torch.tools.profile_step import san_batches
 
-    (batch,) = san_batches(1, *SAN_CPU_HW)
+    batch = san_batch(*SAN_CPU_HW)
     cfg = config_from_dict(SAN_KITTI)
     cpu_model = setup_model(cfg.model, device="cpu", dtype=torch.bfloat16)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})

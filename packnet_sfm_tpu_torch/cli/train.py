@@ -6,7 +6,8 @@
 One positional argument: a yaml config for a fresh run, or a checkpoint
 directory to resume (its meta.json holds the config; the model, optimizer,
 schedule, step and flip generator are restored and training goes on at the
-next epoch). ``--profile-dir`` traces epoch 1 with ``torch.profiler``.
+next epoch). ``--profile-dir`` traces epoch 1 with ``torch.profiler`` and
+writes its steps' spans beside the trace (``engine/trainer``).
 Runs on the card unless ``--device cpu`` is given. The last line printed
 is ``{"history": [...]}``, one record an epoch (``Trainer.fit``'s: loss,
 images/s, train and validation seconds, peak MiB on the card, the metric
@@ -41,7 +42,8 @@ def parse_args(argv=None):
     parser.add_argument("--distributed", action="store_true",
                         help="one process a rank, under torch.distributed.run")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="write a torch.profiler trace of epoch 1 there")
+                        help="write a torch.profiler trace of epoch 1 and its "
+                             "steps' spans there")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     if not (args.file.endswith((".ckpt", ".yaml")) or os.path.isdir(args.file)):

@@ -31,8 +31,7 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
-from torch.profiler import record_function
-
+from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.engine.metrics import (
     DepthMetricsConfig,
     compute_depth_metrics_per_sample,
@@ -64,7 +63,9 @@ def zero_metrics(device) -> Dict[str, torch.Tensor]:
 def to_device_float(x, device) -> torch.Tensor:
     """A host array as a float32 tensor on ``device``; uint8 is scaled to
     [0, 1]."""
-    t = torch.as_tensor(np.asarray(x)).to(device, non_blocking=True)
+    host = torch.as_tensor(np.asarray(x))
+    spans.note_copy(host)
+    t = host.to(device, non_blocking=True)
     return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
 
 
@@ -77,25 +78,29 @@ def prepare_train_batch(batch: Dict, device) -> Dict:
     jittered 'rgb' and 'rgb_context' while 'rgb_original' and
     'rgb_context_original' keep the plain images for the loss; without it
     the originals alias the images. 'intrinsics' goes along as float32.
+    The copies run inside the span 'batch_copy' (``engine/spans.py``),
+    twice a step: the images' before the jitter, the rest's after it.
     """
     def to_f(x):
         return to_device_float(x, device)
 
-    rgb = to_f(batch["rgb"])
-    ctx = [to_f(c) for c in batch.get("rgb_context", [])]
+    with spans.span("batch_copy"):
+        rgb = to_f(batch["rgb"])
+        ctx = [to_f(c) for c in batch.get("rgb_context", [])]
+        params = to_f(batch["jitter"]) if batch.get("jitter") is not None else None
     out = {"rgb": rgb, "rgb_original": rgb}
     if ctx:
         out["rgb_context"] = out["rgb_context_original"] = ctx
-    if batch.get("jitter") is not None:
-        params = to_f(batch["jitter"])
+    if params is not None:
         out["rgb"] = apply_jitter(rgb, params)
         if ctx:
             out["rgb_context"] = [apply_jitter(c, params) for c in ctx]
-    for key in ("intrinsics", "depth", "input_depth"):
-        if key in batch:
-            out[key] = to_f(batch[key])
-    if "pose_context" in batch:
-        out["pose_context"] = [to_f(p) for p in batch["pose_context"]]
+    with spans.span("batch_copy"):
+        for key in ("intrinsics", "depth", "input_depth"):
+            if key in batch:
+                out[key] = to_f(batch[key])
+        if "pose_context" in batch:
+            out["pose_context"] = [to_f(p) for p in batch["pose_context"]]
     return out
 
 
@@ -231,29 +236,33 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     scale = band.count if band is not None else 1
 
     def step(acc: Dict[str, torch.Tensor], batch: Dict, progress: float = 0.0):
-        batch = prepare_train_batch(batch, device)
-        if compute_dtype != torch.float32:
-            batch = cast_batch(batch, compute_dtype)
-        optimizer.zero_grad(set_to_none=True)
-        totals: Dict[str, torch.Tensor] = {}
-        parts = [batch] if grad_accum <= 1 else list(_microbatches(batch, grad_accum))
-        for i, part in enumerate(parts):
-            # the ranks average their gradients once, after the last microbatch
-            defer = distributed and i < len(parts) - 1
-            with loss_module.no_sync() if defer else contextlib.nullcontext():
-                loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
-                if model.has_loss:      # the kinds without a loss have nothing to step
-                    (loss.float() * scale / max(grad_accum, 1)).backward()
-            for k, v in spatial.sum_over(metrics, band).items():
-                totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        with torch.no_grad():
-            for k in METRIC_KEYS:
-                if k in totals:
-                    acc[k] += torch.stack([totals[k], torch.ones((), device=device)])
-        return acc
+        with spans.step_span("train_step"):
+            batch = prepare_train_batch(batch, device)
+            if compute_dtype != torch.float32:
+                batch = cast_batch(batch, compute_dtype)
+            optimizer.zero_grad(set_to_none=True)
+            totals: Dict[str, torch.Tensor] = {}
+            parts = [batch] if grad_accum <= 1 else list(_microbatches(batch, grad_accum))
+            for i, part in enumerate(parts):
+                # the ranks average their gradients once, after the last microbatch
+                defer = distributed and i < len(parts) - 1
+                with loss_module.no_sync() if defer else contextlib.nullcontext():
+                    with spans.span("forward"):
+                        loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
+                    if model.has_loss:      # the kinds without a loss have nothing to step
+                        with spans.span("backward"):
+                            (loss.float() * scale / max(grad_accum, 1)).backward()
+                for k, v in spatial.sum_over(metrics, band).items():
+                    totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
+            with spans.span("optimizer_step"):
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
+            with torch.no_grad():
+                for k in METRIC_KEYS:
+                    if k in totals:
+                        acc[k] += torch.stack([totals[k], torch.ones((), device=device)])
+            return acc
 
     return step
 
@@ -281,7 +290,7 @@ def eval_metrics(inv2: torch.Tensor, gt: torch.Tensor,
     the four ``EVAL_MODES`` ('_pp' post-processed by the flip, '_gt' scaled
     by the ground truth's median), and 'inv_depth', the post-processed
     inverse depth [B, H, W, 1]."""
-    with torch.inference_mode(), record_function("depth_metrics"):
+    with torch.inference_mode(), spans.span("depth_metrics"):
         b = gt.shape[0]
         inv_depth = inv2[:b]
         inv_depth_pp = post_process_inv_depth(inv_depth, inv2[b:])
@@ -324,10 +333,12 @@ def make_eval_step(model: SfmModelDef, metrics_cfg: DepthMetricsConfig,
         if band is not None:
             spatial.check_rows(np.shape(batch["rgb"])[1], band.count,
                                spatial.network_stride(model.depth_net))
-        rgb = to_device_float(batch["rgb"], device)
-        gt = to_device_float(batch["depth"], device)
-        inputs = {k: to_device_float(batch[k], device) for k in extra_keys if k in batch}
-        inv2 = gather_rows(eval_forward(model, rgb, band=band, **inputs), mesh)
-        return eval_metrics(inv2, gt, metrics_cfg)
+        with spans.step_span("eval_step"):
+            with spans.span("batch_copy"):
+                rgb = to_device_float(batch["rgb"], device)
+                gt = to_device_float(batch["depth"], device)
+                inputs = {k: to_device_float(batch[k], device) for k in extra_keys if k in batch}
+            inv2 = gather_rows(eval_forward(model, rgb, band=band, **inputs), mesh)
+            return eval_metrics(inv2, gt, metrics_cfg)
 
     return step

@@ -14,7 +14,9 @@ train split.
   ``max(max_epochs, min_epochs) - 1``, each one ``train_epoch``, the
   validation table, the W&B metrics and ``check_and_save`` on {loss,
   <mode>_<metric>, <di>-<mode>_<metric>}; with a profile directory, epoch 1
-  is traced with ``torch.profiler``.
+  is traced with ``torch.profiler`` (``epoch_001.json``) and its steps'
+  spans recorded (``engine/spans.py``): each span's mean host ms and self
+  ms a step, and the step counters, in ``epoch_001_spans.json``.
 - ``train_epoch``: progressive scale count, one train step a batch, the
   device-side metric sums read once at the end, images/s (a multi-camera
   batch of B samples of N cameras counts B*N images).
@@ -60,6 +62,7 @@ program agrees by construction:
 
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 import time
@@ -71,6 +74,7 @@ import torch
 from packnet_sfm_tpu_torch.core.config import ConfigNode
 from packnet_sfm_tpu_torch.datasets.loader import setup_dataloader, setup_dataset
 from packnet_sfm_tpu_torch.device import resolve_device
+from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.engine.checkpoint import (
     ModelCheckpoint,
     load_network,
@@ -473,10 +477,12 @@ class Trainer:
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            with profile(activities=activities) as prof:
+            with profile(activities=activities) as prof, spans.recording() as records:
                 train_metrics = self.train_epoch(epoch)
             os.makedirs(self.profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(self.profile_dir, f"epoch_{epoch:03d}.json"))
+            with open(os.path.join(self.profile_dir, f"epoch_{epoch:03d}_spans.json"), "w") as f:
+                json.dump(spans.summary(records), f, indent=1)
         else:
             train_metrics = self.train_epoch(epoch)
         # agreed once more: a signal after the epoch's last check must not

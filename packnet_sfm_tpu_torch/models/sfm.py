@@ -2,9 +2,10 @@
 
 ``SfmModelDef`` holds the networks and the loss configuration;
 ``model_forward`` and ``model_loss`` run them on a batch of NHWC tensors,
-under the profiler ranges ``depth_net``, ``pose_net``, ``photometric_loss``
-and ``supervised_loss`` that ``tools/profile_step.py`` reads. The kinds
-(``MODEL_KINDS``), as the JAX package defines them:
+under the spans ``depth_net``, ``pose_net``, ``photometric_loss`` and
+``supervised_loss`` (``engine/spans.py``: profiler ranges, and host times
+while recording). The kinds (``MODEL_KINDS``), as the JAX package defines
+them:
 
 - ``SfmModel``: the networks only; its loss is 0 (no term);
 - ``SelfSupModel``: the pinhole photometric loss;
@@ -43,8 +44,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.geometry.camera_generic import (
     canonical_pinhole_rays,
     projection_temperature,
@@ -142,7 +143,7 @@ def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool,
     if do_flip:
         inputs = {k: flip_lr(v) for k, v in inputs.items()}
     rgb = inputs.pop("rgb")
-    with record_function("depth_net"), spatial.use(band):
+    with spans.span("depth_net"), spatial.use(band):
         out = _normalize_depth_output(model.depth_net(rgb, **inputs))
     if do_flip:
         for key in ("inv_depths", "inv_depths_rgbd"):
@@ -175,7 +176,7 @@ def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
     out = _depth_with_flip(model, batch, generator, train, band)
     out["poses"] = None
     if "rgb_context" in batch and model.pose_net is not None:
-        with record_function("pose_net"):
+        with spans.span("pose_net"):
             pose_vec = model.pose_net(batch["rgb"], batch["rgb_context"])
         out["poses"] = [pose_vec_to_mat(pose_vec[:, i], model.rotation_mode)
                         for i in range(pose_vec.shape[1])]
@@ -251,7 +252,7 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     if model.kind == "GenericSelfSupModel":
         h, w = image.shape[1:3]
         canonical = canonical_pinhole_rays(h, w, device=image.device)
-        with record_function("photometric_loss"):
+        with spans.span("photometric_loss"):
             loss, metrics = generic_multiview_photometric_loss(
                 image, context, out["inv_depths"], out["ray_surface"],
                 canonical if band is None else band.take(canonical, dim=0), out["poses"],
@@ -268,7 +269,7 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
         photo_cfg = model.photometric
         if num_scales is not None and num_scales != photo_cfg.num_scales:
             photo_cfg = dataclasses.replace(photo_cfg, num_scales=num_scales)
-        with record_function("photometric_loss"):
+        with spans.span("photometric_loss"):
             self_loss, self_metrics = multiview_photometric_loss(
                 image, context, out["inv_depths"], batch["intrinsics"], out["poses"],
                 photo_cfg, band=band)
@@ -276,7 +277,7 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
         loss = loss + ((1.0 - w) * self_loss if supervised else self_loss)
 
     if supervised:
-        with record_function("supervised_loss"):
+        with spans.span("supervised_loss"):
             gt_inv = depth2inv(batch["depth"])
             sup_loss, sup_metrics = supervised_loss(out["inv_depths"], gt_inv, model.supervised,
                                                     band, batch_group())

@@ -25,8 +25,8 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
+from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.nn.layers import (
     Conv2dBlock,
     InvDepthHead,
@@ -157,7 +157,7 @@ class PackNetSAN01(nn.Module):
         x5p, skips = self.encoder(rgb.permute(0, 3, 1, 2))
         sfeats = None
         if input_depth is not None:
-            with record_function("sparse_branch"):
+            with spans.span("sparse_branch"):
                 sfeats = self.mconvs(input_depth.permute(0, 3, 1, 2))
         if not self.training:
             return {"inv_depths": self._decode(x5p, skips, sfeats)[0]}

@@ -1,0 +1,12 @@
+"""Host milliseconds an eval step spends inside the program's span
+``batch_copy`` (the batch's rgb and ground truth moved to the card and
+made float32, ``engine/train.make_eval_step``; a copy from pageable host
+memory waits there for the work queued before it), the mean over the
+recorded window (``portbench/spans.py``: the cell's steps back to back
+with the program's span recorder on and no profiler)."""
+
+from portbench import spans
+
+
+def read(run, trace):
+    return spans.host_ms(run, "batch_copy")

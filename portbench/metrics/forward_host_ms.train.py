@@ -1,0 +1,11 @@
+"""Host milliseconds a train step spends inside the program's span
+``forward`` (the loss module's call: the depth and pose networks and the
+losses, dispatched), the mean over the recorded window
+(``portbench/spans.py``: the cell's steps back to back with the program's
+span recorder on and no profiler)."""
+
+from portbench import spans
+
+
+def read(run, trace):
+    return spans.host_ms(run, "forward")

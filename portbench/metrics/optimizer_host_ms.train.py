@@ -1,0 +1,10 @@
+"""Host milliseconds a train step spends inside the program's span
+``optimizer_step`` (Adam's ``optimizer.step()`` and the schedule's step),
+the mean over the recorded window (``portbench/spans.py``: the cell's
+steps back to back with the program's span recorder on and no profiler)."""
+
+from portbench import spans
+
+
+def read(run, trace):
+    return spans.host_ms(run, "optimizer_step")

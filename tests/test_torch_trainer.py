@@ -297,6 +297,19 @@ def test_preemption_after_step_one_redoes_the_epoch(tmp_path):
     assert np.isfinite(history[0]["loss"])
 
 
+def test_profiled_epoch_writes_its_spans(tmp_path):
+    trainer = Trainer(_resume_config(tmp_path / "ckpt", max_epochs=2), device="cpu",
+                      profile_dir=str(tmp_path / "trace"))
+    trainer.fit()
+    assert (tmp_path / "trace" / "epoch_001.json").is_file()
+    out = json.loads((tmp_path / "trace" / "epoch_001_spans.json").read_text())
+    assert out["steps"] == trainer.steps_per_epoch
+    assert {"train_step", "batch_copy", "forward", "backward",
+            "optimizer_step"} <= set(out["spans"])
+    assert out["spans"]["train_step"]["calls"] == 1.0 and out["counters"]["copies"] > 0
+    assert not (tmp_path / "trace" / "epoch_000_spans.json").exists()
+
+
 # --- ModelCheckpoint ------------------------------------------------------------------
 
 def _save_all(ckpt, values, monitor="loss"):
