@@ -38,6 +38,12 @@ Phases, each of which fails the run:
    the device operations one warp_bwd_image_cuda call enqueues, counted by
    torch.profiler (at most WARP_IMAGE_DEVICE_OPS); its times at the four
    shapes beside the plain version's and F.grid_sample's image gradient.
+   channel_conv3d's weight and bias gradient (csrc/fold_conv.cu) against
+   its plain version in float64 at PackNet-SAN's and PackNet01's shapes and
+   on tiles cut by every edge, both paddings, both dtypes, the same bits on
+   a second call, one launch count a call; its time at the three shapes of
+   CONV3D_WGRAD_SHAPES beside its bytes bound, the plain version's and
+   torch.nn.grad.conv3d_weight's.
 3. NRS slice: the self-supervised train step of configs/train_omnicam.yaml
    (GenericSelfSupModel, RaySurfaceResNet-18 + PoseNet, 384x384, batch 1,
    random weights from seed 0) on synthetic samples, as the config says:
@@ -1114,6 +1120,101 @@ def warp_jvp_kernel_phase(device):
     return {"warp_jvp": dict(max_abs_err=worst, ms=k, plain_ms=p, bound_ms=bound[0],
                              bound_by=bound[1], library_ms=lib, library_note=lib_note,
                              dtype="float32", by_case=cases)}
+
+
+# channel_conv3d's weight gradient (csrc/fold_conv.cu): (name, B, Cp, H, W, d,
+# dtype) of the timed shapes, the main path's, and (B, Cp, Hin, W, d, row
+# padding, dtype) of the checked cases beyond them: tiles cut by every edge,
+# d of each register blocking (4, 2, 1), the band's padding with its halo
+# rows attached.
+CONV3D_WGRAD_SHAPES = (("san_unpack1", 1, 32, 176, 608, 4, "float32"),
+                       ("san_pack5", 1, 2048, 11, 38, 4, "float32"),
+                       ("packnet01_b16_unpack1", 16, 32, 96, 320, 8, "bfloat16"))
+CONV3D_WGRAD_CASES = ((2, 3, 13, 45, 4, 1, "float32"), (1, 17, 9, 33, 8, 1, "bfloat16"),
+                      (1, 8, 12, 40, 4, 0, "float32"), (2, 20, 7, 70, 8, 0, "bfloat16"),
+                      (1, 5, 6, 31, 6, 1, "float32"), (1, 1, 5, 7, 3, 0, "float32"))
+# float32 sums of up to 3.4 M products against float64: relative to the
+# largest of dW and of db
+TOL_CONV3D_WGRAD = 1e-5
+
+
+def conv3d_wgrad_kernel_phase(device):
+    """channel_conv3d's weight and bias gradient kernel against its plain
+    version in float64 (bfloat16: within one bfloat16 spacing of the
+    float64 sum, which the float32 sum rounded once is), the same bits on
+    a second call and one launch count a call, on the timed shapes and the
+    cases above; then its time at the timed shapes beside its bound (x and
+    dy read once at HBM_BYTES_PER_S, or 27 d + d FP32 operations a voxel),
+    the plain version's time and torch.nn.grad.conv3d_weight's (cuDNN's
+    weight gradient alone, no bias; the port never calls it)."""
+    import torch
+
+    from packnet_sfm_tpu_torch.ops import fold_conv
+    from portbench.yardstick import HBM_BYTES_PER_S
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator().manual_seed(4)
+
+    def inputs(b, cp, hin, w, d, ph, dt):
+        h = hin + 2 * ph - 2
+        x = torch.randn((b, 1, cp, hin, w), generator=gen).to(device, dtypes[dt])
+        g = torch.randn((b, d, cp, h, w), generator=gen).to(device, dtypes[dt])
+        return x, g, (1, ph, 1)
+
+    def check(label, x, g, pad):
+        before = fold_conv.launch_counts["channel_conv3d_wgrad"]
+        dw, db = fold_conv.channel_conv3d_wgrad_cuda(x, g, pad)
+        dw2, db2 = fold_conv.channel_conv3d_wgrad_cuda(x, g, pad)
+        torch.cuda.synchronize()
+        if fold_conv.launch_counts["channel_conv3d_wgrad"] != before + 2:
+            raise AssertionError("channel_conv3d_wgrad counts one launch a call")
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            raise AssertionError(f"channel_conv3d_wgrad {label}: two calls, other bits")
+        want_w, want_b = fold_conv.channel_conv3d_wgrad_plain(x.double(), g.double(), pad)
+        errs = []
+        for got, want in ((dw, want_w), (db, want_b)):
+            if x.dtype == torch.bfloat16:
+                spacing = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 8)
+                errs.append(((got.double() - want).abs() / spacing).max().item())
+            else:
+                errs.append(((got.double() - want).abs().max() / want.abs().max()).item())
+        log(f"channel_conv3d_wgrad {label} {str(x.dtype)[6:]}: dW {errs[0]:.3e}, db "
+            f"{errs[1]:.3e} " + ("bfloat16 spacings (at most 1)" if x.dtype == torch.bfloat16
+                                 else f"of the largest (tolerance {TOL_CONV3D_WGRAD:g})"))
+        if max(errs) > (1.0 if x.dtype == torch.bfloat16 else TOL_CONV3D_WGRAD):
+            raise AssertionError(f"channel_conv3d_wgrad {label} disagrees with its plain version")
+        return max(errs)
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for b, cp, hin, w, d, ph, dt in CONV3D_WGRAD_CASES:
+        err = check(f"B={b} Cp={cp} Hin={hin} W={w} d={d} pad=(1,{ph},1)",
+                    *inputs(b, cp, hin, w, d, ph, dt))
+        worst[dt] = max(worst[dt], err)
+    by_shape = []
+    for name, b, cp, h, w, d, dt in CONV3D_WGRAD_SHAPES:
+        x, g, pad = inputs(b, cp, h, w, d, 1, dt)
+        worst[dt] = max(worst[dt], check(name, x, g, pad))
+        k = time_ms(lambda: fold_conv.channel_conv3d_wgrad_cuda(x, g, pad))
+        p = time_ms(lambda: fold_conv.channel_conv3d_wgrad_plain(x, g, pad), **PLAIN_REPS)
+        lib = time_ms(lambda: torch.nn.grad.conv3d_weight(x, (d, 1, 3, 3, 3), g, padding=1))
+        voxels = b * cp * h * w
+        n_bytes = voxels * (1 + d) * x.element_size()
+        times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+                 "operations": voxels * d * (2 * 27 + 1) / PEAK_FP32_OPS * 1e3,
+                 "launch": _launch_floor_ms[0]}
+        by = max(times, key=times.get)
+        row = dict(shape=name, b=b, cp=cp, h=h, w=w, d=d, dtype=dt, ms=k, plain_ms=p,
+                   library_ms=lib, bound_ms=times[by], bound_by=by,
+                   bytes_bound_ms=times["bytes"], over_bytes_bound=k / times["bytes"])
+        by_shape.append(row)
+        log(f"channel_conv3d_wgrad {name} [{b},{d},{cp},{h},{w}] {dt}: kernel {k:.4f} ms, "
+            f"bound {times[by]:.4f} ({by}; bytes {times['bytes']:.4f}, {k / times['bytes']:.2f}x), "
+            f"plain {p:.3f}, torch.nn.grad.conv3d_weight {lib:.4f}")
+    first = by_shape[0]
+    return {"channel_conv3d_wgrad": dict(
+        max_abs_err=worst["float32"], max_bf16_spacings=worst["bfloat16"], ms=first["ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=first["library_ms"], dtype="float32 and bfloat16", by_shape=by_shape)}
 
 
 def flagship_view_synthesis(model, batch, device, dtype):
@@ -3644,6 +3745,7 @@ def main(kernels_only=False):
                             projection_temperature(PROGRESS))
     measured.update(warp_kernel_phase(device, path_shapes(kitti)))
     measured.update(warp_jvp_kernel_phase(device))
+    measured.update(conv3d_wgrad_kernel_phase(device))
     if kernels_only:
         print(json.dumps({"kernels_alone": measured}))
         return 0
@@ -3758,6 +3860,15 @@ def main(kernels_only=False):
         entry["space_kinds_launches"] = {run: [x["launches"][name] for x in rec["ranks"]]
                                          for run, rec in space_kinds["runs"].items()}
         kernels.append(entry)
+    # not a TPU kernel: the weight gradient of channel_conv3d, which JAX
+    # leaves to XLA's autodiff; its launches a step are counted by the
+    # program's spans (engine/spans.py), one a differentiated call
+    m = measured["channel_conv3d_wgrad"]
+    kernels.append(dict(name="channel_conv3d_wgrad", route="cuda",
+                        source="packnet_sfm_tpu_torch/csrc/fold_conv.cu", replaces=None,
+                        **{k: m[k] for k in ("max_abs_err", "max_bf16_spacings", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms", "dtype",
+                                             "by_shape")}))
     print(json.dumps({"steps": {"nrs": nrs, "flagship": kitti_steps}}))
     print(json.dumps({"eval": evaluated}))
     print(json.dumps({"train": trained}))

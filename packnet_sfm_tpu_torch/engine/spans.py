@@ -10,8 +10,8 @@ and end (``time.perf_counter_ns``) in the record of the current step.
 which all the spans of the step share, and at its end stores the step's
 counters: the change over the step of the kernels' launch counters
 (``ops/warp.launch_counts``, ``bf16_launch_counts``,
-``ops/softargmax.launch_counts``, ``band_launch_counts``, which stay the one
-store of those counts) and the host arrays the step moved to its device
+``ops/softargmax.launch_counts``, ``band_launch_counts``,
+``ops/fold_conv.launch_counts``, which stay the one store of those counts) and the host arrays the step moved to its device
 (``note_copy``): their bytes, their number, and how many came from pageable
 host memory, whose copy to a card waits for the stream.
 
@@ -74,10 +74,10 @@ _recorder: Optional[_Recorder] = None
 
 
 def _launch_counts() -> Dict[str, int]:
-    from packnet_sfm_tpu_torch.ops import softargmax, warp
+    from packnet_sfm_tpu_torch.ops import fold_conv, softargmax, warp
 
     return {**warp.launch_counts, **warp.bf16_launch_counts, **softargmax.launch_counts,
-            **softargmax.band_launch_counts}
+            **softargmax.band_launch_counts, **fold_conv.launch_counts}
 
 
 @contextlib.contextmanager

@@ -28,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every exported launcher, by source name.
 SIGNATURES = {
+    "fold_conv": {
+        "channel_conv3d_wgrad": [_P] * 5 + [_I] * 9 + [_P],
+        "channel_conv3d_wgrad_bf16": [_P] * 5 + [_I] * 9 + [_P],
+    },
     "softargmax": {
         "softargmax_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
         "softargmax_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],

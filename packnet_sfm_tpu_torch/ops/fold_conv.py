@@ -33,12 +33,23 @@ bands. The fused path's border corrections belong to the whole image's
 top and bottom rows, which a band does not have, so ``fused_pack_conv``
 takes the two-step path on a band whatever its mode (as the JAX package's
 ``engine/train._resolve_pack_mode`` does on a space axis).
+
+``channel_conv3d``'s convolution is ``_ChannelConv3d``: its forward is
+``F.conv3d`` and its input's gradient cuDNN's (``convolution_backward``),
+as autograd would take them; its weight and bias gradients are
+``channel_conv3d_wgrad_cuda``, the hand-written kernel of
+``csrc/fold_conv.cu``, on CUDA tensors, and ``channel_conv3d_wgrad_plain``,
+the 27-tap sum written out, on CPU tensors. ``launch_counts`` counts the
+kernel's calls.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from packnet_sfm_tpu_torch.parallel import spatial
 
@@ -58,6 +69,126 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+launch_counts = {"channel_conv3d_wgrad": 0}
+
+WGRAD_DTYPES = (torch.float32, torch.bfloat16)
+# csrc/fold_conv.cu's work item (TILE_C channels x TILE_H rows x TILE_W
+# columns of output voxels), and the blocks of it that an H100 holds at once:
+# 4 on each of its 132 SMs (BLOCKS_PER_SM). The plan launches no more, so
+# that every block runs in one wave.
+WGRAD_TILE = (16, 4, 32)
+WGRAD_RESIDENT_BLOCKS = 4 * 132
+INT32_MAX = 2 ** 31 - 1
+
+
+def _row_padding(padding) -> int:
+    """The row padding of ``channel_conv3d``'s two paddings: 1 (the whole
+    image) or (1, 0, 1) (a band with its halo rows attached)."""
+    pads = (padding,) * 3 if isinstance(padding, int) else tuple(padding)
+    if pads in ((1, 1, 1), (1, 0, 1)):
+        return pads[1]
+    raise ValueError(f"channel_conv3d pads by 1 or (1, 0, 1), got {padding!r}")
+
+
+def wgrad_plan(b: int, cp: int, h: int, w: int, d: int) -> dict:
+    """The launch of ``channel_conv3d_wgrad`` for dy [b, d, cp, h, w]: ``jb``
+    output channels a block (2, or 1 for an odd d) and ``blocks`` a j-block,
+    as many as fit the resident blocks beside the other j-blocks, each taking
+    an equal share of the work items (the last one fewer). A function of
+    the shape alone, so the order of the sums is too."""
+    tc, th, tw = WGRAD_TILE
+    items = b * -(-cp // tc) * -(-h // th) * -(-w // tw)
+    if items > INT32_MAX or h * w > INT32_MAX:
+        raise ValueError(f"channel_conv3d_wgrad indexes {items} items and planes of "
+                         f"{h * w} voxels with int32")
+    jb = 2 if d % 2 == 0 else 1
+    per_block = -(-items // max(1, WGRAD_RESIDENT_BLOCKS // (d // jb)))
+    return {"jb": jb, "blocks": -(-items // per_block)}
+
+
+def channel_conv3d_wgrad_plain(x5: torch.Tensor, grad_out: torch.Tensor,
+                               padding=1):
+    """dW [d, 1, 3, 3, 3] and db [d] of ``F.conv3d(x5, W, b, padding=padding)``
+    at the cotangent ``grad_out`` [B, d, Cp, H, W]: the 27-tap sum written
+    out, summed in float32 (float64 for float64) and cast once to x5's
+    dtype, as the kernel does."""
+    ph = _row_padding(padding)
+    acc = torch.promote_types(x5.dtype, torch.float32)
+    g = grad_out.to(acc)
+    _, d, cp, h, w = g.shape
+    xp = F.pad(x5[:, 0].to(acc), (1, 1, ph, ph, 1, 1))              # [B, Cp+2, H+2, W+2]
+    taps = [torch.einsum("bjchw,bchw->j", g, xp[:, kz:kz + cp, kh:kh + h, kx:kx + w])
+            for kz, kh, kx in itertools.product(range(3), repeat=3)]
+    dw = torch.stack(taps, dim=1).reshape(d, 1, 3, 3, 3)
+    return dw.to(x5.dtype), g.sum((0, 2, 3, 4)).to(x5.dtype)
+
+
+def channel_conv3d_wgrad_cuda(x5: torch.Tensor, grad_out: torch.Tensor, padding=1):
+    """dW [d, 1, 3, 3, 3] and db [d] by ``csrc/fold_conv.cu``: x5
+    [B, 1, Cp, Hin, W] and grad_out [B, d, Cp, H, W], contiguous CUDA
+    tensors of one dtype (float32 or bfloat16); the sums in float32, the
+    results in that dtype, the same bits on every call."""
+    from packnet_sfm_tpu_torch.ops import _cuda
+
+    ph = _row_padding(padding)
+    if x5.dim() != 5 or grad_out.dim() != 5:
+        raise ValueError(f"expected x [B,1,Cp,H,W] and grad_out [B,d,Cp,H,W], got "
+                         f"{tuple(x5.shape)} and {tuple(grad_out.shape)}")
+    b, _, cp, hin, w = x5.shape
+    d, h = grad_out.shape[1], hin + 2 * ph - 2
+    _cuda.check_tensor("x", x5, (b, 1, cp, hin, w), WGRAD_DTYPES)
+    _cuda.check_tensor("grad_out", grad_out, (b, d, cp, h, w), (x5.dtype,))
+    plan = wgrad_plan(b, cp, h, w, d)
+    name = "channel_conv3d_wgrad" + ("_bf16" if x5.dtype == torch.bfloat16 else "")
+    launcher = getattr(_cuda.load("fold_conv"), name)
+    device = x5.device
+    partials = torch.empty(d * plan["blocks"] * 28, dtype=torch.float32, device=device)
+    dw = torch.empty((d, 1, 3, 3, 3), dtype=x5.dtype, device=device)
+    db = torch.empty(d, dtype=x5.dtype, device=device)
+    with torch.cuda.device(device):
+        err = launcher(x5.data_ptr(), grad_out.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+                       db.data_ptr(), b, cp, hin, h, w, ph, d, plan["jb"], plan["blocks"],
+                       _cuda.stream(x5))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launch_counts["channel_conv3d_wgrad"] += 1
+    return dw, db
+
+
+class _ChannelConv3d(torch.autograd.Function):
+    """``F.conv3d(x5, weight, bias, padding=padding)`` with its weight and
+    bias gradients from ``channel_conv3d_wgrad_cuda`` (CUDA) or
+    ``channel_conv3d_wgrad_plain`` (CPU). It saves what ``F.conv3d`` saves:
+    the input and the weight."""
+
+    @staticmethod
+    def forward(ctx, x5, weight, bias, padding):
+        ctx.save_for_backward(x5, weight)
+        ctx.padding = padding
+        return F.conv3d(x5, weight, bias, padding=padding)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        x5, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        d_x = d_w = d_b = None
+        if need_x:
+            d_x = torch.ops.aten.convolution_backward(
+                grad_out, x5, weight, [weight.shape[0]], [1, 1, 1],
+                [1, _row_padding(ctx.padding), 1], [1, 1, 1], False, [0, 0, 0], 1,
+                [True, False, False])[0]
+        if need_w or need_b:
+            if grad_out.is_cuda:
+                d_w, d_b = channel_conv3d_wgrad_cuda(x5.contiguous(), grad_out.contiguous(),
+                                                     ctx.padding)
+            elif grad_out.device.type == "cpu":
+                d_w, d_b = channel_conv3d_wgrad_plain(x5, grad_out, ctx.padding)
+            else:
+                raise ValueError(f"channel_conv3d has no weight gradient on {grad_out.device}")
+        return d_x, d_w, d_b, None
+
+
 def channel_conv3d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                    dtype=None) -> torch.Tensor:
     """3x3x3 conv over (channel-as-depth, H, W) emitting the folded layout.
@@ -72,7 +203,7 @@ def channel_conv3d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     padding = 1
     if spatial.current() is not None:       # the rows above and below the band
         x5, padding = spatial.halo(x5, 1, 1, dim=3), (1, 0, 1)
-    y = F.conv3d(x5, kernel.to(dt), bias.to(dt), padding=padding)   # [B, d, Cp, H, W]
+    y = _ChannelConv3d.apply(x5, kernel.to(dt), bias.to(dt), padding)   # [B, d, Cp, H, W]
     return _nhwc(y.reshape(b, d * cp, h, w))
 
 

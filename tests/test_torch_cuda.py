@@ -68,6 +68,16 @@ window's largest entry on both), MaskedBatchNorm's training forward, its
 running statistics and the gradient of its input within 1e-5 of their
 largest (cuDNN and the CPU sum the active sites in other orders); no kernel
 of the port launches on this path.
+
+channel_conv3d's weight and bias gradient (csrc/fold_conv.cu) against its
+plain version at PackNet-SAN's and PackNet01's largest shapes, on tiles cut
+by every edge and under the band's padding: float32 within 1e-5 of the
+largest of the float64 sum, bfloat16 within one bfloat16 spacing of the
+float32 sum rounded once; the same bits on a second call and one launch
+count a call; and the autograd function around it against F.conv3d's
+autograd on the card (the forward the same bits; the input's gradient,
+cuDNN's in both, within 1e-6, as cuDNN's does not repeat its own bits at
+every shape).
 """
 
 import pytest
@@ -478,3 +488,75 @@ def test_masked_pool_and_batch_norm_on_the_card_match_the_cpu(device, hw):
         assert torch.equal(got, want)
     for got, want in zip(card[2:], cpu[2:]):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+# (B, Cp, Hin, W, d, padding, dtype): PackNet-SAN's largest unpack and its
+# two-step pack5, PackNet01's largest unpack at B 16 in bfloat16; then tiles
+# cut by every edge (Cp not a multiple of 16, H of 4, W of 32), an odd d,
+# and the band's padding with its halo rows attached
+CONV3D_WGRAD_CASES = [(1, 32, 176, 608, 4, 1, "float32"), (1, 2048, 11, 38, 4, 1, "float32"),
+                      (16, 32, 96, 320, 8, 1, "bfloat16"), (2, 19, 13, 45, 4, 1, "float32"),
+                      (1, 5, 6, 31, 3, 1, "float32"), (1, 8, 12, 40, 4, (1, 0, 1), "float32"),
+                      (2, 20, 7, 70, 8, (1, 0, 1), "bfloat16")]
+
+
+@pytest.mark.parametrize("b,cp,hin,w,d,padding,dtype", CONV3D_WGRAD_CASES)
+def test_conv3d_weight_gradient_kernel_matches_plain(device, b, cp, hin, w, d, padding, dtype):
+    """channel_conv3d_wgrad against the plain version: float32 within 1e-5
+    of the largest dW and db of the float64 sum (float32 sums of up to
+    3.4 M products); bfloat16 within one bfloat16 spacing of the float32
+    sum rounded once (the kernel rounds its own float32 sum, taken in
+    another order, once). The same bits on a second call, one count a call."""
+    from packnet_sfm_tpu_torch.ops import fold_conv
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    h = hin if padding == 1 else hin - 2
+    x = torch.randn((b, 1, cp, hin, w), generator=gen).to(device, dt)
+    grad = torch.randn((b, d, cp, h, w), generator=gen).to(device, dt)
+    before = fold_conv.launch_counts["channel_conv3d_wgrad"]
+    got = fold_conv.channel_conv3d_wgrad_cuda(x, grad, padding)
+    again = fold_conv.channel_conv3d_wgrad_cuda(x, grad, padding)
+    torch.cuda.synchronize()
+    assert fold_conv.launch_counts["channel_conv3d_wgrad"] == before + 2
+    if dt == torch.float32:
+        want = fold_conv.channel_conv3d_wgrad_plain(x.double(), grad.double(), padding)
+    else:
+        want = fold_conv.channel_conv3d_wgrad_plain(x, grad, padding)
+    for a, c, ref in zip(got, again, want):
+        assert a.dtype == dt and a.shape == ref.shape
+        assert torch.equal(a, c)
+        if dt == torch.float32:
+            assert (a.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+        else:
+            spacing = torch.ldexp(torch.ones_like(ref.float()), torch.frexp(ref.float())[1] - 8)
+            assert ((a.float() - ref.float()).abs() <= spacing).all()
+
+
+def test_channel_conv3d_on_the_card_matches_conv3d_autograd(device):
+    """The autograd function on the card: its forward is F.conv3d's, the
+    same bits; its input's gradient cuDNN's, within 1e-6 of the largest
+    (cuDNN's own input gradient at this shape differs between two calls of
+    F.conv3d's autograd by 1.7e-7 of the largest on an H100); its weight and
+    bias gradients the kernel's, within 1e-5 of the largest."""
+    import torch.nn.functional as F
+
+    from packnet_sfm_tpu_torch.ops import fold_conv
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 1, 24, 40, 70), generator=gen).to(device)
+    weight = torch.randn((4, 1, 3, 3, 3), generator=gen).to(device)
+    bias = torch.randn((4,), generator=gen).to(device)
+    grad = torch.randn((2, 4, 24, 40, 70), generator=gen).to(device)
+    outs = []
+    for fn in (lambda *a: F.conv3d(*a, padding=1),
+               lambda *a: fold_conv._ChannelConv3d.apply(*a, 1)):
+        leaves = [t.clone().requires_grad_() for t in (x, weight, bias)]
+        y = fn(*leaves)
+        y.backward(grad)
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    want, got = outs
+    assert torch.equal(got[0], want[0])
+    assert (got[1] - want[1]).abs().max().item() <= 1e-6 * want[1].abs().max().item()
+    for a, c in zip(got[2:], want[2:]):
+        assert (a - c).abs().max().item() <= 1e-5 * c.abs().max().item()

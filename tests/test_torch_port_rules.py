@@ -52,7 +52,7 @@ from packnet_sfm_tpu_torch.core.config import (
 from packnet_sfm_tpu_torch.datasets.synthetic import SyntheticSfmDataset, collate_train_batch
 from packnet_sfm_tpu_torch.device import resolve_device
 from packnet_sfm_tpu_torch.engine.factory import setup_model
-from packnet_sfm_tpu_torch.ops import _cuda
+from packnet_sfm_tpu_torch.ops import _cuda, fold_conv
 from packnet_sfm_tpu_torch.ops import softargmax as sa
 from packnet_sfm_tpu_torch.ops import warp
 from tests.test_datasets import kitti_root  # noqa: F401 (a fixture)
@@ -160,6 +160,8 @@ def test_kernel_wrappers_take_only_cuda_tensors():
         sa.softargmax_fwd_cuda(d, d, 0.05, 2)
     with pytest.raises(ValueError):
         sa.softargmax_coords(d.to("meta"), d.to("meta"), 0.05, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fold_conv.channel_conv3d_wgrad_cuda(torch.zeros(1, 1, 2, 3, 3), torch.zeros(1, 4, 2, 3, 3))
     # on a CPU tensor the entry point takes the plain version and launches nothing
     sa.reset_launch_counts()
     sa.softargmax_coords(d, d, 0.05, 2)
