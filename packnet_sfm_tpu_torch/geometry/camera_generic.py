@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.geometry.pose import invert_pose, transform_points
 from packnet_sfm_tpu_torch.ops.image import interpolate_image
 from packnet_sfm_tpu_torch.ops.softargmax import (
@@ -75,41 +76,43 @@ def generic_project(
     'plain' forces ``softargmax_coords_plain``, to hold the kernels to it.
     On a ``band`` the points and rays are the band's H rows of an image of
     band.rows(H), and so are the coordinates (see the module docstring).
+    Runs under the span ``generic_project`` (``engine/spans.py``).
     """
-    b, H, W, _ = X.shape
-    H_all = H if band is None else band.rows(H)
-    rays = cam.rays
-    if cam.Tcw is not None:
-        X = transform_points(cam.Tcw, X)
-    if downsample:
-        h, w = H // 2, W // 2
-        rays = interpolate_image(rays, (H_all // 2, w), band=band)
-        X = interpolate_image(X, (H_all // 2, w), band=band)
-    else:
-        h, w = H, W
-    h_all = H_all // H * h
-    direction = X / torch.linalg.norm(X, dim=-1, keepdim=True).clamp(min=1e-8)
+    with spans.span("generic_project"):
+        b, H, W, _ = X.shape
+        H_all = H if band is None else band.rows(H)
+        rays = cam.rays
+        if cam.Tcw is not None:
+            X = transform_points(cam.Tcw, X)
+        if downsample:
+            h, w = H // 2, W // 2
+            rays = interpolate_image(rays, (H_all // 2, w), band=band)
+            X = interpolate_image(X, (H_all // 2, w), band=band)
+        else:
+            h, w = H, W
+        h_all = H_all // H * h
+        direction = X / torch.linalg.norm(X, dim=-1, keepdim=True).clamp(min=1e-8)
 
-    if projector == "auto":
-        project = softargmax_coords
-    elif projector == "plain":
-        project = softargmax_coords_plain
-    else:
-        raise ValueError(f"unknown projector {projector!r}")
-    rows = {}
-    if band is not None:
-        def slab(i):
-            return ray_slab(i * h, h, h_all, patch)
+        if projector == "auto":
+            project = softargmax_coords
+        elif projector == "plain":
+            project = softargmax_coords_plain
+        else:
+            raise ValueError(f"unknown projector {projector!r}")
+        rows = {}
+        if band is not None:
+            def slab(i):
+                return ray_slab(i * h, h, h_all, patch)
 
-        rows = dict(row0=band.start(h), height=h_all, ray_row0=slab(band.index)[0])
-        rays = spatial.take_rows(rays, slab, dim=1, band=band)
-    ex, ey = project(direction.permute(0, 3, 1, 2).contiguous(),
-                     rays.permute(0, 3, 1, 2).contiguous(), temperature, patch, **rows)
-    # Normalize with the align_corners convention (x by w-1, y by h-1).
-    out = torch.stack([2.0 * ex / (w - 1) - 1.0, 2.0 * ey / (h_all - 1) - 1.0], dim=-1)
-    if downsample:
-        out = interpolate_image(out, (H_all, W), band=band)
-    return out
+            rows = dict(row0=band.start(h), height=h_all, ray_row0=slab(band.index)[0])
+            rays = spatial.take_rows(rays, slab, dim=1, band=band)
+        ex, ey = project(direction.permute(0, 3, 1, 2).contiguous(),
+                         rays.permute(0, 3, 1, 2).contiguous(), temperature, patch, **rows)
+        # Normalize with the align_corners convention (x by w-1, y by h-1).
+        out = torch.stack([2.0 * ex / (w - 1) - 1.0, 2.0 * ey / (h_all - 1) - 1.0], dim=-1)
+        if downsample:
+            out = interpolate_image(out, (H_all, W), band=band)
+        return out
 
 
 def view_synthesis_generic(

@@ -102,6 +102,20 @@ class SfmModelDef(nn.Module):
         self.flip_lr_prob = 0.0 if kind.startswith("Generic") else flip_lr_prob
         self.upsample_depth_maps = upsample_depth_maps
         self.input_keys = tuple(input_keys)
+        self._canonical_rays: Dict = {}
+
+    def canonical_rays(self, h: int, w: int, device) -> torch.Tensor:
+        """``canonical_pinhole_rays(h, w)`` on ``device``, built and copied
+        there once per (h, w, device) and kept: an NRS step reads the same
+        bits every step with no copy from pageable host memory, which would
+        wait for the device's stream. The one copy is counted in the record
+        of the step that makes it (``engine/spans.note_copy``). Read only."""
+        key = (h, w, torch.device(device))
+        if key not in self._canonical_rays:
+            host = canonical_pinhole_rays(h, w, device="cpu")
+            spans.note_copy(host)
+            self._canonical_rays[key] = host.to(key[2])
+        return self._canonical_rays[key]
 
     @property
     def has_loss(self) -> bool:
@@ -251,7 +265,7 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     context = batch.get("rgb_context_original", batch.get("rgb_context"))
     if model.kind == "GenericSelfSupModel":
         h, w = image.shape[1:3]
-        canonical = canonical_pinhole_rays(h, w, device=image.device)
+        canonical = model.canonical_rays(h, w, image.device)
         with spans.span("photometric_loss"):
             loss, metrics = generic_multiview_photometric_loss(
                 image, context, out["inv_depths"], out["ray_surface"],

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.nn.depth_resnet import disp_to_depth
 from packnet_sfm_tpu_torch.nn.resnet import (
     Conv3x3Refl,
@@ -35,7 +36,8 @@ class RaySurfaceResNet(nn.Module):
     first, 'ray_surface': [B, H, W, 3]} (NHWC at the boundary). On a band
     of rows (``parallel/spatial.py``) both decoders run on the band as
     DepthResNet's does: their reflection pads take the rows across its
-    edges from the neighbouring bands."""
+    edges from the neighbouring bands. The ray-surface decoder runs under
+    the span ``ray_decoder`` (``engine/spans.py``)."""
 
     # the encoder's stride, as DepthResNet's: a band keeps a row at 1/32
     space_stride = 32
@@ -56,7 +58,8 @@ class RaySurfaceResNet(nn.Module):
     def forward(self, rgb: torch.Tensor) -> dict:
         feats = self.encoder(rgb.permute(0, 3, 1, 2))
         disps = self.decoder(feats)
-        rays = self.ray_decoder(feats)
+        with spans.span("ray_decoder"):
+            rays = self.ray_decoder(feats)
         inv_depths = [disp_to_depth(d, self.min_depth, self.max_depth)[0].permute(0, 2, 3, 1)
                       for d in disps]
         return {"inv_depths": inv_depths, "ray_surface": rays.permute(0, 2, 3, 1)}

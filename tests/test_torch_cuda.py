@@ -78,6 +78,11 @@ count a call; and the autograd function around it against F.conv3d's
 autograd on the card (the forward the same bits; the input's gradient,
 cuDNN's in both, within 1e-6, as cuDNN's does not repeat its own bits at
 every shape).
+
+An NRS step (configs/train_omnicam.yaml at 96x96, bfloat16 as the recipe
+says, batch 2) on the card: its record counts 2 launches of K6f and 2 of
+K6b (a forward and a backward a context) and the batch's copies alone (the
+canonical rays stay on the card).
 """
 
 import pytest
@@ -560,3 +565,36 @@ def test_channel_conv3d_on_the_card_matches_conv3d_autograd(device):
     assert (got[1] - want[1]).abs().max().item() <= 1e-6 * want[1].abs().max().item()
     for a, c in zip(got[2:], want[2:]):
         assert (a - c).abs().max().item() <= 1e-5 * c.abs().max().item()
+
+
+def test_an_nrs_step_launches_each_soft_argmax_kernel_twice(device):
+    import copy
+
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.core.config import OMNICAM, config_from_dict
+    from packnet_sfm_tpu_torch.engine import spans
+    from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
+    from packnet_sfm_tpu_torch.engine.train import make_train_step, zero_metrics
+
+    raw = copy.deepcopy(OMNICAM)
+    raw["datasets"]["augmentation"]["image_shape"] = "(96, 96)"
+    cfg = config_from_dict(raw)
+    model = setup_model(cfg.model, device=device, seed=0, dtype=torch.bfloat16)
+    optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, 100)
+    step = make_train_step(model, optimizer, scheduler, compute_dtype=torch.bfloat16)
+    acc = zero_metrics(device)
+    rng = np.random.default_rng(0)
+    img = lambda: rng.integers(0, 256, size=(2, 96, 96, 3), dtype=np.uint8)  # noqa: E731
+    batch = {"rgb": img(), "rgb_context": [img(), img()],
+             "jitter": rng.uniform(0.9, 1.1, size=(2, 4)).astype(np.float32)}
+    step(acc, batch, 0.5)
+    torch.cuda.synchronize()
+    with spans.recording() as records:
+        step(acc, batch, 0.5)
+    torch.cuda.synchronize()
+    (r,) = records
+    assert r.counters["softargmax_fwd"] == 2 and r.counters["softargmax_bwd"] == 2
+    assert r.counters["softargmax_fwd_band"] == r.counters["softargmax_bwd_band"] == 0
+    assert r.counters["pageable_copies"] == 4
+    assert torch.isfinite(acc["loss"]).all()

@@ -4,8 +4,12 @@ and its spans are profiler ranges nested under ``train_step`` on the
 operators' timeline; on, one record a step with the expected nesting, each
 child inside its parent, self times not below 0, the copied bytes of the
 host batch and the change of the kernels' launch counters (0 on the CPU).
-The ``cuda``-marked case checks one step's warp launches on the card
-against the ops' own counters:
+An NRS step (configs/train_omnicam.yaml) opens ``ray_decoder`` under
+``depth_net`` and ``generic_project`` under ``photometric_loss``, once a
+context; its canonical rays are the template's bits, copied to the device
+once (``models/sfm.SfmModelDef.canonical_rays``), so that a later step's
+record counts the batch's copies alone. The ``cuda``-marked case
+checks one step's warp launches on the card against the ops' own counters:
 
     python -m pytest tests/test_torch_spans.py -m cuda --noconftest -q
 """
@@ -16,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from packnet_sfm_tpu_torch.core.config import KITTI, config_from_dict
+from packnet_sfm_tpu_torch.core.config import KITTI, OMNICAM, config_from_dict
 from packnet_sfm_tpu_torch.engine import spans
 from packnet_sfm_tpu_torch.engine.factory import (
     make_optimizer,
@@ -24,6 +28,7 @@ from packnet_sfm_tpu_torch.engine.factory import (
     setup_model,
 )
 from packnet_sfm_tpu_torch.engine.train import make_eval_step, make_train_step, zero_metrics
+from packnet_sfm_tpu_torch.geometry.camera_generic import canonical_pinhole_rays
 from packnet_sfm_tpu_torch.ops import softargmax, warp
 
 torch.set_num_threads(1)
@@ -55,6 +60,23 @@ def _train_step(device="cpu", dtype=None, **cfg_kwargs):
     step = make_train_step(model, optimizer, scheduler, generator=torch.Generator().manual_seed(0),
                            compute_dtype=dtype or torch.float32)
     return step, zero_metrics(device)
+
+
+def _nrs_step(shape, device="cpu", dtype=None):
+    raw = copy.deepcopy(OMNICAM)
+    raw["datasets"]["augmentation"]["image_shape"] = str(tuple(shape))
+    cfg = config_from_dict(raw)
+    model = setup_model(cfg.model, device=device, seed=0, dtype=dtype)
+    optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, 100)
+    step = make_train_step(model, optimizer, scheduler, compute_dtype=dtype or torch.float32)
+    return step, zero_metrics(device)
+
+
+def _nrs_batch(shape, b=1, seed=0):
+    rng = np.random.default_rng(seed)
+    img = lambda: rng.integers(0, 256, size=(b, *shape, 3), dtype=np.uint8)  # noqa: E731
+    return {"rgb": img(), "rgb_context": [img(), img()],
+            "jitter": rng.uniform(0.9, 1.1, size=(b, 4)).astype(np.float32)}
 
 
 @pytest.fixture(scope="module")
@@ -156,6 +178,42 @@ def test_summary_of_known_records():
     assert out["spans"]["forward"] == {"ms": 5.0, "self_ms": 4.0, "calls": 1.0}
     assert out["spans"]["depth_net"] == {"ms": 1.0, "self_ms": 1.0, "calls": 0.5}
     assert out["counters"] == {"copies": 3.0}
+
+
+def test_an_nrs_step_opens_its_spans():
+    step, acc = _nrs_step((96, 96))
+    with spans.recording() as records:
+        step(acc, _nrs_batch((96, 96)), 0.5)
+    (r,) = records
+    parents = [(s.name, r.spans[s.parent].name) for s in r.spans if s.parent >= 0]
+    assert parents.count(("ray_decoder", "depth_net")) == 1
+    assert parents.count(("generic_project", "photometric_loss")) == 2
+    for s in r.spans:
+        if s.name in ("ray_decoder", "generic_project"):
+            p = r.spans[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+
+
+@pytest.mark.parametrize("h,w", [(96, 96), (48, 80)])
+def test_the_kept_canonical_rays_are_the_template_bit_for_bit(h, w):
+    model = setup_model(config_from_dict(OMNICAM).model, device="cpu", seed=0)
+    got = model.canonical_rays(h, w, "cpu")
+    assert torch.equal(got, canonical_pinhole_rays(h, w, device="cpu"))
+    assert model.canonical_rays(h, w, torch.device("cpu")) is got
+
+
+def test_an_nrs_step_copies_its_rays_once():
+    shape = (96, 128)
+    step, acc = _nrs_step(shape)
+    batches = [_nrs_batch(shape, seed=i) for i in range(2)]
+    with spans.recording() as records:
+        for b in batches:
+            step(acc, b, 0.5)
+    rays = canonical_pinhole_rays(*shape, device="cpu")
+    for r, b, extra in zip(records, batches, (1, 0)):
+        host = [b["rgb"], *b["rgb_context"], b["jitter"]]
+        assert r.counters["copies"] == r.counters["pageable_copies"] == len(host) + extra
+        assert r.counters["copy_bytes"] == sum(a.nbytes for a in host) + extra * rays.nbytes
 
 
 def test_recording_cannot_nest():
