@@ -138,6 +138,14 @@ def make_optimizer(model: SfmModelDef, optimizer_cfg: ConfigNode,
 
     Call ``scheduler.step()`` after every optimizer step, so that step k
     runs at factor(k). Returns (optimizer, scheduler).
+
+    On a CUDA device Adam is ``capturable``: its step counts and its bias
+    corrections stay on the device, and each group's rate is a float32
+    tensor there, which the schedule fills in place, so that a train step
+    captured as a CUDA graph (``engine/train.make_train_step``) reads the
+    rate of the step it replays. A state loaded into it (``load_state_dict``)
+    is brought back to that form. On the CPU it is torch's default Adam with
+    Python float rates.
     """
     if optimizer_cfg.get("name", "Adam").lower() != "adam":
         raise ValueError(f"Unknown optimizer {optimizer_cfg.get('name')}")
@@ -162,5 +170,29 @@ def make_optimizer(model: SfmModelDef, optimizer_cfg: ConfigNode,
         groups.append({"params": list(model.pose_net.parameters()),
                        "lr": optimizer_cfg.pose.lr,
                        "weight_decay": optimizer_cfg.pose.get("weight_decay", 0.0)})
-    optimizer = torch.optim.Adam(groups)
+    device = groups[0]["params"][0].device
+    if device.type != "cuda":
+        optimizer = torch.optim.Adam(groups)
+        return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+    for group in groups:
+        # the schedule's base rate stays a Python float, so that it computes
+        # each step's rate on the host and fills the tensor with it
+        group["initial_lr"] = group["lr"]
+    optimizer = torch.optim.Adam(groups, capturable=True)
+    _capturable_on(optimizer, device)
+    optimizer.register_load_state_dict_post_hook(lambda opt: _capturable_on(opt, device))
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+
+
+def _capturable_on(optimizer: torch.optim.Optimizer, device: torch.device) -> None:
+    """Every group ``capturable`` with its rate a float32 tensor on ``device``
+    and every step count there: what a loaded state (a checkpoint read on
+    the CPU, or saved by an Adam on the CPU) is brought back to."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        lr = group["lr"]
+        if not (isinstance(lr, torch.Tensor) and lr.device == device):
+            group["lr"] = torch.as_tensor(lr, dtype=torch.float32).to(device)
+    for state in optimizer.state.values():
+        if "step" in state:
+            state["step"] = state["step"].to(device=device, dtype=torch.float32)

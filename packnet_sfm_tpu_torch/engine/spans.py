@@ -11,9 +11,12 @@ which all the spans of the step share, and at its end stores the step's
 counters: the change over the step of the kernels' launch counters
 (``ops/warp.launch_counts``, ``bf16_launch_counts``,
 ``ops/softargmax.launch_counts``, ``band_launch_counts``,
-``ops/fold_conv.launch_counts``, which stay the one store of those counts) and the host arrays the step moved to its device
-(``note_copy``): their bytes, their number, and how many came from pageable
-host memory, whose copy to a card waits for the stream.
+``ops/fold_conv.launch_counts``, which stay the one store of those counts;
+a replayed CUDA graph adds its launches there, ``add_launches``), the host
+arrays the step moved to its device (``note_copy``): their bytes, their
+number, and how many came from pageable host memory, whose copy to a card
+waits for the stream; and ``graph_replays``, 1 where the step replayed a
+captured CUDA graph (``note_replay``), 0 where it ran eagerly.
 
 Off, the default, a span costs its ``record_function`` and one check. Only
 the thread that opened the step records (the autograd engine's threads run
@@ -73,11 +76,24 @@ class _Recorder:
 _recorder: Optional[_Recorder] = None
 
 
-def _launch_counts() -> Dict[str, int]:
+def _counter_dicts() -> tuple:
     from packnet_sfm_tpu_torch.ops import fold_conv, softargmax, warp
 
-    return {**warp.launch_counts, **warp.bf16_launch_counts, **softargmax.launch_counts,
-            **softargmax.band_launch_counts, **fold_conv.launch_counts}
+    return (warp.launch_counts, warp.bf16_launch_counts, softargmax.launch_counts,
+            softargmax.band_launch_counts, fold_conv.launch_counts)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch counter, by kernel name."""
+    return {k: v for counts in _counter_dicts() for k, v in counts.items()}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` ({kernel: launches}) to the kernels' launch counters:
+    the launches of a replayed CUDA graph, which no wrapper counts."""
+    for counts in _counter_dicts():
+        for k in counts:
+            counts[k] += delta.get(k, 0)
 
 
 @contextlib.contextmanager
@@ -121,9 +137,10 @@ def step_span(name: str):
         return
     with record_function(name):
         rec.thread = threading.get_ident()
-        rec.launches_at_start = _launch_counts()
+        rec.launches_at_start = launch_counts()
         rec.current = StepRecord(len(rec.records), [Span(name, -1, time.perf_counter_ns())],
-                                 {"copy_bytes": 0, "copies": 0, "pageable_copies": 0})
+                                 {"copy_bytes": 0, "copies": 0, "pageable_copies": 0,
+                                  "graph_replays": 0})
         rec.open = [0]
         try:
             yield
@@ -131,7 +148,7 @@ def step_span(name: str):
             record, rec.current = rec.current, None
             record.spans[0].end_ns = time.perf_counter_ns()
             record.counters.update({k: v - rec.launches_at_start.get(k, 0)
-                                    for k, v in _launch_counts().items()})
+                                    for k, v in launch_counts().items()})
             rec.records.append(record)
 
 
@@ -144,6 +161,14 @@ def note_copy(host) -> None:
         counters["copy_bytes"] += host.nbytes
         counters["copies"] += 1
         counters["pageable_copies"] += not host.is_pinned()
+
+
+def note_replay() -> None:
+    """Count one replay of a captured CUDA graph in the current step's
+    record, if recording."""
+    rec = _recorder
+    if rec is not None and rec.recording_here():
+        rec.current.counters["graph_replays"] += 1
 
 
 def summary(records: List[StepRecord]) -> dict:

@@ -20,11 +20,17 @@ On a (data x space) grid (``parallel/mesh.make_mesh_2d``, passed as
 network runs on the rank's band of their rows (``parallel/spatial.py``):
 the train step's loss and gradient are the whole batch's, the eval step
 gathers the bands of the inverse depth before the metrics.
+
+In one process on a card the train step is captured once as a CUDA graph
+and replayed every step (``captures_graph`` says where): the host then
+enqueues a step as a few copies and one graph launch, not the thousands of
+launches of the eager step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -41,6 +47,7 @@ from packnet_sfm_tpu_torch.models.sfm import (
     DEPTH_SCALES,
     SfmModelDef,
     check_band,
+    draw_flip,
     model_forward,
     model_loss,
     scales_used,
@@ -62,10 +69,14 @@ def zero_metrics(device) -> Dict[str, torch.Tensor]:
 
 def to_device_float(x, device) -> torch.Tensor:
     """A host array as a float32 tensor on ``device``; uint8 is scaled to
-    [0, 1]."""
-    host = torch.as_tensor(np.asarray(x))
-    spans.note_copy(host)
-    t = host.to(device, non_blocking=True)
+    [0, 1]. A tensor on ``device`` already (the captured train step's
+    inputs) is decoded where it is, with no copy."""
+    if isinstance(x, torch.Tensor) and x.device == torch.device(device):
+        t = x
+    else:
+        host = torch.as_tensor(np.asarray(x))
+        spans.note_copy(host)
+        t = host.to(device, non_blocking=True)
     return t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
 
 
@@ -154,9 +165,10 @@ class _LossModule(torch.nn.Module):
         self.model = model
         self.band = band
 
-    def forward(self, batch: Dict, progress: float, num_scales: Optional[int], generator):
+    def forward(self, batch: Dict, progress: float, num_scales: Optional[int], generator,
+                flip_flag: Optional[torch.Tensor] = None):
         return model_loss(self.model, batch, progress=progress, num_scales=num_scales,
-                          generator=generator, band=self.band)
+                          generator=generator, band=self.band, flip_flag=flip_flag)
 
 
 def _space_band(model: SfmModelDef, mesh: Optional[Mesh2D]) -> Optional[spatial.Band]:
@@ -166,6 +178,185 @@ def _space_band(model: SfmModelDef, mesh: Optional[Mesh2D]) -> Optional[spatial.
     if band is not None:
         spatial.network_stride(model.depth_net)
     return band
+
+
+# the host batch's entries that the train step reads (``prepare_train_batch``)
+TRAIN_INPUT_KEYS = ("rgb", "rgb_context", "jitter", "intrinsics", "depth", "input_depth",
+                    "pose_context")
+
+
+def captures_graph(device: torch.device, model: SfmModelDef,
+                   optimizer: torch.optim.Optimizer, grad_accum: int = 1,
+                   mesh: Optional[Mesh2D] = None, distributed: Optional[bool] = None) -> bool:
+    """Whether ``make_train_step`` captures its step as a CUDA graph, from
+    what the step can observe: a CUDA device, no process group
+    (``distributed``, None: ``torch.distributed.is_initialized()``), no
+    (data x space) grid, one microbatch, a kind whose loss trains and does
+    not read ``progress`` (NRS's reads it on the host, ``models/sfm.
+    SfmModelDef.loss_reads_progress``), and an Adam whose every group is
+    ``capturable`` with its rate a tensor (``engine/factory.make_optimizer``
+    builds it so on a card). Everything else takes the eager step."""
+    if distributed is None:
+        distributed = torch.distributed.is_initialized()
+    return (torch.device(device).type == "cuda" and not distributed and mesh is None
+            and grad_accum <= 1 and model.has_loss and not model.loss_reads_progress
+            and isinstance(optimizer, torch.optim.Adam)
+            and all(g.get("capturable", False) and isinstance(g["lr"], torch.Tensor)
+                    for g in optimizer.param_groups))
+
+
+def _input_leaves(batch: Dict) -> list:
+    """[(key, list index or None, host array)] of the entries of a host batch
+    that the train step reads."""
+    leaves = []
+    for key in TRAIN_INPUT_KEYS:
+        value = batch.get(key)
+        if isinstance(value, (list, tuple)):
+            leaves += [(key, i, np.asarray(a)) for i, a in enumerate(value)]
+        elif value is not None:
+            leaves.append((key, None, np.asarray(value)))
+    return leaves
+
+
+def _signature(leaves: list) -> tuple:
+    return tuple((key, i, a.shape, a.dtype.str) for key, i, a in leaves)
+
+
+class _StepGraph:
+    """The train step captured as one CUDA graph, and its static inputs.
+
+    Built at the first call, before any state moves: the batch goes to
+    static device tensors of its host dtypes; the forward and backward run
+    once eagerly on a side stream (cuDNN's plans, the kernels' first loads),
+    the buffers they move (BatchNorm's statistics) are put back and their
+    gradients dropped; Adam's state is made for every parameter that got a
+    gradient, as its first step would make it, and a throwaway Adam of the
+    same options takes one step so that its kernels are loaded; then
+    ``captured`` (decode, jitter, cast, forward, loss, backward) and
+    ``optimizer.step()`` are captured. The parameters' gradients are then
+    the graph's, Adam's state the tensors it updates. The launches that the
+    warm-up and the capture counted are taken back off the kernels' launch
+    counters, and each replay adds the captured ones (``engine/spans.
+    add_launches``).
+
+    Each replay: the host batch is copied into one of two pinned staging
+    sets (the set's last copy to the card waited for first, by an event)
+    and from there to the static inputs with ``non_blocking`` copies, which
+    leave the launch queue full; the step's flip draw fills a device flag
+    that the graph selects the straight or the flipped tensors by
+    (``models/sfm._depth_with_flip``); the graph replays; the accumulator
+    adds the graph's metric rows.
+    """
+
+    STAGES = 2
+
+    def __init__(self, leaves: list, device: torch.device, captured, model: SfmModelDef,
+                 optimizer: torch.optim.Optimizer, flips: bool):
+        self.signature = _signature(leaves)
+        self.device, self.optimizer = device, optimizer
+        hosts = [torch.as_tensor(a) for _, _, a in leaves]
+        self.inputs = [torch.empty(h.shape, dtype=h.dtype, device=device) for h in hosts]
+        self.stages = [[torch.empty(h.shape, dtype=h.dtype, pin_memory=True) for h in hosts]
+                       for _ in range(self.STAGES)]
+        self.copied = [torch.cuda.Event() for _ in range(self.STAGES)]
+        self.turn = 0
+        self.flag = torch.zeros((), dtype=torch.bool, device=device) if flips else None
+        batch: Dict = {}
+        for (key, i, _), t in zip(leaves, self.inputs):
+            if i is None:
+                batch[key] = t
+            else:
+                batch.setdefault(key, []).append(t)
+        counted = spans.launch_counts()
+        with torch.cuda.device(device):
+            self._copy_in(leaves)
+            self._warm_up(captured, batch, model)
+            warmed = spans.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.rows = captured(batch, self.flag)
+                with spans.span("optimizer_step"):
+                    optimizer.step()
+        after = spans.launch_counts()
+        self.launches = {k: after[k] - warmed[k] for k in after}
+        spans.add_launches({k: counted[k] - after[k] for k in after})
+        self.grads = [(p, p.grad) for group in optimizer.param_groups
+                      for p in group["params"] if p.grad is not None]
+        self.state, self.rates = optimizer.state, [g["lr"] for g in optimizer.param_groups]
+
+    def _warm_up(self, captured, batch: Dict, model: SfmModelDef) -> None:
+        buffers = [b.detach().clone() for b in model.buffers()]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            captured(batch, self.flag)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        with torch.no_grad():
+            for b, saved in zip(model.buffers(), buffers):
+                b.copy_(saved)
+        optimizer = self.optimizer
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None or optimizer.state.get(p):
+                    continue
+                state = optimizer.state[p]
+                state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if group.get("amsgrad"):
+                    state["max_exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+        optimizer.zero_grad(set_to_none=True)
+        options = {k: v for k, v in optimizer.param_groups[0].items()
+                   if k not in ("params", "lr", "initial_lr")}
+        probe = torch.zeros(1, device=self.device, requires_grad=True)
+        probe.grad = torch.ones(1, device=self.device)
+        with warnings.catch_warnings():     # that it steps uncaptured
+            warnings.simplefilter("ignore")
+            type(optimizer)([{"params": [probe], **options,
+                              "lr": torch.zeros((), device=self.device)}]).step()
+
+    def takes(self, leaves: list) -> bool:
+        """Whether a host batch has the captured shapes and dtypes."""
+        return _signature(leaves) == self.signature
+
+    def current(self, optimizer: torch.optim.Optimizer) -> bool:
+        """Whether the optimizer still holds the state and the rates that the
+        graph reads (``load_state_dict`` replaces them)."""
+        return optimizer.state is self.state and all(
+            g["lr"] is lr for g, lr in zip(optimizer.param_groups, self.rates))
+
+    def _copy_in(self, leaves: list) -> None:
+        stage, copied = self.stages[self.turn], self.copied[self.turn]
+        copied.synchronize()        # this set's copy of two steps back has left it
+        with spans.span("batch_copy"):
+            for (_, _, a), pinned, static in zip(leaves, stage, self.inputs):
+                pinned.copy_(torch.as_tensor(a))
+                spans.note_copy(pinned)
+                static.copy_(pinned, non_blocking=True)
+        copied.record(torch.cuda.current_stream(self.device))
+        self.turn = (self.turn + 1) % self.STAGES
+
+    def run(self, leaves: list, flip: bool, acc: Dict[str, torch.Tensor]) -> None:
+        """One step: the batch in, the flip's flag set, a replay, the metric
+        rows added to ``acc``."""
+        with torch.cuda.device(self.device):
+            self._copy_in(leaves)
+            if self.flag is not None:
+                self.flag.fill_(flip)
+            with spans.span("graph_replay"):
+                self.graph.replay()
+        spans.note_replay()
+        spans.add_launches(self.launches)
+        with torch.no_grad():
+            for k, row in self.rows.items():
+                acc[k] += row
+
+    def restore_grads(self) -> None:
+        """Point the parameters' gradients back at the graph's after an eager
+        step made its own."""
+        for p, g in self.grads:
+            p.grad = g
 
 
 def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, scheduler=None,
@@ -214,6 +405,16 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     path, or a height that does not split into bands of a multiple of the
     depth network's stride raises ``ValueError`` on every rank, before the
     step's first collective (``models/sfm.check_band``).
+
+    Where ``captures_graph`` holds (one process on a card, no grid, one
+    microbatch, a loss that does not read ``progress``, a capturable Adam:
+    ``engine/factory.make_optimizer`` on a card), the first call captures
+    the step as one CUDA graph (``_StepGraph``) and every call whose batch
+    has the captured shapes and dtypes replays it: the same math in the
+    same precision, the hand-written kernels' launches recorded in it. The
+    flip is still drawn on the host, once a step; the schedule's step runs
+    after the replay and fills the rate that the next replay reads. A batch
+    of other shapes takes the eager step.
     """
     device = next(model.parameters()).device
     band = mesh.band() if mesh is not None else None
@@ -235,34 +436,70 @@ def make_train_step(model: SfmModelDef, optimizer: torch.optim.Optimizer, schedu
     # shares' gradients, times the bands, is the data ranks' mean
     scale = band.count if band is not None else 1
 
+    graph: Optional[_StepGraph] = None
+    use_graph = captures_graph(device, model, optimizer, grad_accum, mesh)
+
+    def captured(batch: Dict, flip_flag: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step's device work on the graph's static inputs, up to the
+        backward: the metrics' accumulator rows [value, 1]."""
+        batch = prepare_train_batch(batch, device)
+        if compute_dtype != torch.float32:
+            batch = cast_batch(batch, compute_dtype)
+        with spans.span("forward"):
+            loss, (metrics, _) = loss_module(batch, 0.0, num_scales, None, flip_flag)
+        with spans.span("backward"):
+            loss.float().backward()
+        one = torch.ones((), device=device)
+        return {k: torch.stack([metrics[k].detach().float(), one])
+                for k in METRIC_KEYS if k in metrics}
+
     def step(acc: Dict[str, torch.Tensor], batch: Dict, progress: float = 0.0):
+        nonlocal graph
         with spans.step_span("train_step"):
-            batch = prepare_train_batch(batch, device)
-            if compute_dtype != torch.float32:
-                batch = cast_batch(batch, compute_dtype)
-            optimizer.zero_grad(set_to_none=True)
-            totals: Dict[str, torch.Tensor] = {}
-            parts = [batch] if grad_accum <= 1 else list(_microbatches(batch, grad_accum))
-            for i, part in enumerate(parts):
-                # the ranks average their gradients once, after the last microbatch
-                defer = distributed and i < len(parts) - 1
-                with loss_module.no_sync() if defer else contextlib.nullcontext():
-                    with spans.span("forward"):
-                        loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
-                    if model.has_loss:      # the kinds without a loss have nothing to step
-                        with spans.span("backward"):
-                            (loss.float() * scale / max(grad_accum, 1)).backward()
-                for k, v in spatial.sum_over(metrics, band).items():
-                    totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
-            with spans.span("optimizer_step"):
-                optimizer.step()
-                if scheduler is not None:
-                    scheduler.step()
-            with torch.no_grad():
-                for k in METRIC_KEYS:
-                    if k in totals:
-                        acc[k] += torch.stack([totals[k], torch.ones((), device=device)])
-            return acc
+            if use_graph:
+                leaves = _input_leaves(batch)
+                if graph is not None and not graph.current(optimizer):
+                    graph = None        # a state loaded since: capture it anew
+                if graph is None:
+                    graph = _StepGraph(leaves, device, captured, model, optimizer,
+                                       flips=model.flip_lr_prob > 0.0 and generator is not None)
+                if graph.takes(leaves):
+                    graph.run(leaves, draw_flip(model, generator), acc)
+                    if scheduler is not None:
+                        scheduler.step()
+                    return acc
+                eager(acc, batch, progress)
+                graph.restore_grads()
+                return acc
+            return eager(acc, batch, progress)
+
+    def eager(acc: Dict[str, torch.Tensor], batch: Dict, progress: float):
+        batch = prepare_train_batch(batch, device)
+        if compute_dtype != torch.float32:
+            batch = cast_batch(batch, compute_dtype)
+        optimizer.zero_grad(set_to_none=True)
+        totals: Dict[str, torch.Tensor] = {}
+        parts = [batch] if grad_accum <= 1 else list(_microbatches(batch, grad_accum))
+        for i, part in enumerate(parts):
+            # the ranks average their gradients once, after the last microbatch
+            defer = distributed and i < len(parts) - 1
+            with loss_module.no_sync() if defer else contextlib.nullcontext():
+                with spans.span("forward"):
+                    loss, (metrics, _) = loss_module(part, progress, num_scales, generator)
+                if model.has_loss:      # the kinds without a loss have nothing to step
+                    with spans.span("backward"):
+                        (loss.float() * scale / max(grad_accum, 1)).backward()
+            for k, v in spatial.sum_over(metrics, band).items():
+                totals[k] = totals.get(k, 0.0) + v.detach().float() / max(grad_accum, 1)
+        with spans.span("optimizer_step"):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+        with torch.no_grad():
+            for k in METRIC_KEYS:
+                if k in totals:
+                    acc[k] += torch.stack([totals[k], torch.ones((), device=device)])
+        return acc
 
     return step
 

@@ -25,7 +25,8 @@ def euler_to_rotation(angles: torch.Tensor) -> torch.Tensor:
 
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
+    # built on the device: a host-built row's copy would wait for the stream
+    row = torch.eye(4, dtype=top.dtype, device=top.device)[3]
     return row.expand(top.shape[:-2] + (1, 4))
 
 

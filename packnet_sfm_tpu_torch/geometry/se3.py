@@ -80,7 +80,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     V = _eye3(xi, W.shape) + B * W + C * W2
     t = (V @ v[..., None])[..., 0]
     top = torch.cat([R, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=xi.dtype, device=xi.device)
+    bottom = torch.eye(4, dtype=xi.dtype, device=xi.device)[3]    # no copy from the host
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], -2)
 
 

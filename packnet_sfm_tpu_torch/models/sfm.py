@@ -124,6 +124,12 @@ class SfmModelDef(nn.Module):
         return self.kind not in ("SfmModel", "GenericSfmModel")
 
     @property
+    def loss_reads_progress(self) -> bool:
+        """Whether ``model_loss`` reads ``progress``: NRS's blend and
+        projection temperature (``GenericSelfSupModel``)."""
+        return self.kind == "GenericSelfSupModel"
+
+    @property
     def photometric_used(self) -> bool:
         """Whether ``model_loss`` runs the photometric graph: the
         self-supervised kinds, except a supervised kind at weight >= 1."""
@@ -137,32 +143,49 @@ def _normalize_depth_output(out) -> Dict:
     return dict(out) if isinstance(out, dict) else {"inv_depths": list(out)}
 
 
+def draw_flip(model: SfmModelDef, generator: Optional[torch.Generator]) -> bool:
+    """The training flip of one step, drawn on the host from ``generator`` (a
+    CPU ``torch.Generator``): one draw where the kind flips and a generator
+    is given, none otherwise (no flip)."""
+    if model.flip_lr_prob > 0.0 and generator is not None:
+        return torch.rand((), generator=generator).item() < model.flip_lr_prob
+    return False
+
+
 def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool,
-                     band: Optional[spatial.Band] = None) -> Dict:
+                     band: Optional[spatial.Band] = None,
+                     flip_flag: Optional[torch.Tensor] = None) -> Dict:
     """Depth forward with the random left-right flip of training.
 
-    The flip is drawn on the host from ``generator`` (a CPU
-    ``torch.Generator``), so it is a Python bool: eager PyTorch needs no
-    traced select, the network simply runs on the flipped inputs (every one
-    of them: rgb and input_depth alike) and its inverse depths are flipped
-    back. No generator, no flip. On a ``band`` the network runs on the
-    band's rows (the flip is along W, within them).
+    The flip is drawn on the host (``draw_flip``), so it is a Python bool:
+    eager PyTorch needs no traced select, the network simply runs on the
+    flipped inputs (every one of them: rgb and input_depth alike) and its
+    inverse depths are flipped back. No generator, no flip. On a ``band``
+    the network runs on the band's rows (the flip is along W, within them).
+
+    ``flip_flag``, a bool tensor on the device that the caller set from its
+    own draw, takes the draw's place (no draw from ``generator``): the
+    inputs and the inverse depths are selected by it from the straight and
+    the flipped tensors, the same values as the branch, with no host
+    decision, as a captured CUDA graph needs.
     """
     inputs = {k: batch[k] for k in model.input_keys if k != "intrinsics" and k in batch}
     if band is not None:
         inputs = {k: band.take(v) for k, v in inputs.items()}
-    do_flip = False
-    if train and model.flip_lr_prob > 0.0 and generator is not None:
-        do_flip = torch.rand((), generator=generator).item() < model.flip_lr_prob
-    if do_flip:
-        inputs = {k: flip_lr(v) for k, v in inputs.items()}
+    if flip_flag is not None:
+        def flip(v):
+            return torch.where(flip_flag, flip_lr(v), v)
+    else:
+        flip = flip_lr if train and draw_flip(model, generator) else None
+    if flip is not None:
+        inputs = {k: flip(v) for k, v in inputs.items()}
     rgb = inputs.pop("rgb")
     with spans.span("depth_net"), spatial.use(band):
         out = _normalize_depth_output(model.depth_net(rgb, **inputs))
-    if do_flip:
+    if flip is not None:
         for key in ("inv_depths", "inv_depths_rgbd"):
             if key in out:
-                out[key] = [flip_lr(d) for d in out[key]]
+                out[key] = [flip(d) for d in out[key]]
     if train and model.upsample_depth_maps:
         h, w = out["inv_depths"][0].shape[1:3]
         full = (h if band is None else band.rows(h), w)
@@ -173,7 +196,8 @@ def _depth_with_flip(model: SfmModelDef, batch: Dict, generator, train: bool,
 
 def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
                   generator: Optional[torch.Generator] = None,
-                  band: Optional[spatial.Band] = None) -> Dict:
+                  band: Optional[spatial.Band] = None,
+                  flip_flag: Optional[torch.Tensor] = None) -> Dict:
     """Run the depth (+ pose) networks on a batch.
 
     batch keys (NHWC): 'rgb' [B,H,W,3]; optional 'input_depth' [B,H,W,1]
@@ -183,11 +207,12 @@ def model_forward(model: SfmModelDef, batch: Dict, train: bool = True,
     and 'poses' (list of [B,4,4] target->context transforms, or None). ``train``
     sets the modules' mode: in training, BatchNorm moves its running
     statistics. ``generator`` draws the training flip (see
-    ``_depth_with_flip``). On a ``band`` the inverse depths are the band's
+    ``_depth_with_flip``), or ``flip_flag``, a device flag set by the
+    caller, selects it. On a ``band`` the inverse depths are the band's
     rows (see the module docstring).
     """
     model.train(train)
-    out = _depth_with_flip(model, batch, generator, train, band)
+    out = _depth_with_flip(model, batch, generator, train, band, flip_flag)
     out["poses"] = None
     if "rgb_context" in batch and model.pose_net is not None:
         with spans.span("pose_net"):
@@ -245,7 +270,8 @@ def check_band(model: SfmModelDef, height: Optional[int], band: spatial.Band) ->
 def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
                num_scales: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
-               band: Optional[spatial.Band] = None):
+               band: Optional[spatial.Band] = None,
+               flip_flag: Optional[torch.Tensor] = None):
     """Training loss for the model's kind: (loss, (metrics, output)).
 
     ``progress`` is the Python float fraction of training done; the NRS
@@ -254,13 +280,14 @@ def model_loss(model: SfmModelDef, batch: Dict, progress: float = 0.0,
     resolves the progressive schedule, ``losses/progressive.py``). The
     kinds without a loss (``SfmModel``, ``GenericSfmModel``) return a 0
     that needs no gradient. On a ``band`` (``check_band``) the loss and the
-    metrics are the band's shares.
+    metrics are the band's shares. ``flip_flag`` is ``model_forward``'s.
     """
     if isinstance(progress, torch.Tensor):
         raise TypeError("progress must be a Python float")
     if band is not None:
         check_band(model, batch["rgb"].shape[1], band)
-    out = model_forward(model, batch, train=True, generator=generator, band=band)
+    out = model_forward(model, batch, train=True, generator=generator, band=band,
+                        flip_flag=flip_flag)
     image = batch.get("rgb_original", batch["rgb"])
     context = batch.get("rgb_context_original", batch.get("rgb_context"))
     if model.kind == "GenericSelfSupModel":

@@ -284,6 +284,15 @@ def _ring_vec4(x_px: torch.Tensor, w3_col: torch.Tensor, cp: int) -> torch.Tenso
     return torch.einsum("qzj,zqbc->qbjc", w3_col, shifts).reshape(4, x_px.shape[1], -1)
 
 
+def ring_indices(m: int, device):
+    """The kernel rows (and columns) that the ring corrections read, built on
+    ``device`` with no copy from the host (which would wait for its stream):
+    near, m-1-p for p < m (rows/cols 0..m-1); far, m+1+t for t < m (rows/cols
+    H-1-t / W-1-t)."""
+    return (torch.arange(m - 1, -1, -1, device=device),
+            torch.arange(m + 1, 2 * m + 1, device=device))
+
+
 def build_fused_kernels(w3: torch.Tensor, b3: torch.Tensor, w2: torch.Tensor,
                         b2: torch.Tensor, cp: int) -> dict:
     """Every weight-only tensor the fused pack conv needs, as a dict.
@@ -305,9 +314,7 @@ def build_fused_kernels(w3: torch.Tensor, b3: torch.Tensor, w2: torch.Tensor,
     b_eff = b2 + torch.einsum("abjpo,j->o", w2r, b3)
     out = {"kk": kk.permute(3, 2, 0, 1), "b_eff": b_eff}
 
-    dev = w2.device
-    i_near = torch.tensor([m - 1 - p for p in range(m)], device=dev)   # rows/cols 0..m-1
-    i_far = torch.tensor([m + 1 + t for t in range(m)], device=dev)    # rows/cols H-1-t/W-1-t
+    i_near, i_far = ring_indices(m, w2.device)
 
     # Ring corrections: top/bottom rings (from x row 0 / H-1 via the w3
     # kh=2 / kh=0 planes), left/right (x col 0 / W-1 via kx=2 / kx=0). All

@@ -137,8 +137,10 @@ def _source_positions(size_in: int, size_out: int, dtype, device) -> torch.Tenso
         return torch.linspace(0.0, size_in - 1.0, size_out, dtype=dtype, device=device)
     div = size_out - 1
     iota = torch.arange(div, dtype=torch.float32, device=device).to(dtype)
-    stop = torch.tensor(size_in - 1.0, dtype=dtype, device=device)
-    return torch.cat([stop * (iota / torch.tensor(float(div), dtype=dtype, device=device)),
+    # the scalars filled on the device: a host-built tensor's copy would wait
+    # for the stream
+    stop = torch.full((), size_in - 1.0, dtype=dtype, device=device)
+    return torch.cat([stop * (iota / torch.full((), float(div), dtype=dtype, device=device)),
                       stop[None]])
 
 

@@ -83,6 +83,23 @@ An NRS step (configs/train_omnicam.yaml at 96x96, bfloat16 as the recipe
 says, batch 2) on the card: its record counts 2 launches of K6f and 2 of
 K6b (a forward and a backward a context) and the batch's copies alone (the
 canonical rays stay on the card).
+
+The train step captured as a CUDA graph (``engine/train.make_train_step``)
+against the eager step from the same weights, batches and flip draws and
+the same capturable Adam, with the schedule's rate halving every step:
+PackNet01-1A + PoseNet at 192x640, batch 4, bfloat16, and PackNet-SAN at
+a 96x320 crop, over 3 steps: each step's loss within 1e-5 (the first) and
+1e-4, the first step's moment (the first gradient) and the update of all
+weights at a cosine of 0.999 and a norm within 0.1% of the eager ones, and
+Adam's moments after the 3 steps at 0.99 and 5%. Against torch's default
+Adam (bias corrections in float64 on the host) PackNet01's moments after
+3 bfloat16 steps read a cosine of 0.9978 and a norm 2.8% off, its update
+0.99976 (a float32 weight that moves by a rounding can round to another
+bfloat16 in the next forward). A replayed step makes no
+synchronizing call (``torch.cuda.set_sync_debug_mode("error")``); a rate
+written between two steps is the one the next replay uses; a batch of
+other shapes takes the eager step (``graph_replays`` 0 in its record) with
+the same hand-written kernels' launches as a replay.
 """
 
 import pytest
@@ -598,3 +615,180 @@ def test_an_nrs_step_launches_each_soft_argmax_kernel_twice(device):
     assert r.counters["softargmax_fwd_band"] == r.counters["softargmax_bwd_band"] == 0
     assert r.counters["pageable_copies"] == 4
     assert torch.isfinite(acc["loss"]).all()
+
+
+def _graph_case(device, name):
+    """(config, host batches, compute dtype) of a graph case: PackNet01-1A +
+    PoseNet at 192x640, batch 4, two contexts, jitter, bfloat16 (the
+    flagship recipe); or PackNet-SAN at a 96x320 crop, batch 1, ground
+    truth on 16% and input depth on 4% of the pixels, the network in
+    float32 on the batch cast to bfloat16 (its recipe)."""
+    import copy
+
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.core.config import KITTI, SAN_KITTI, config_from_dict
+    from packnet_sfm_tpu_torch.engine.factory import compute_dtype
+
+    raw = copy.deepcopy(KITTI if name == "packnet01" else SAN_KITTI)
+    # the rate halves every step: the schedule's writes are read by the next step
+    raw["model"]["scheduler"].update(step_size=1, gamma=0.5)
+    cfg = config_from_dict(raw)
+    rng = np.random.default_rng(0)
+    b, (h, w) = (4, (192, 640)) if name == "packnet01" else (1, (96, 320))
+    img = lambda: rng.integers(0, 256, size=(b, h, w, 3), dtype=np.uint8)  # noqa: E731
+    batches = []
+    for _ in range(3):
+        batch = {"rgb": img(), "jitter": rng.uniform(0.9, 1.1, size=(b, 4)).astype(np.float32)}
+        if name == "packnet01":
+            k = np.array([[w * 0.6, 0, w / 2], [0, h * 1.2, h / 2], [0, 0, 1]], np.float32)
+            batch.update(rgb_context=[img(), img()], intrinsics=np.repeat(k[None], b, axis=0))
+        else:
+            gt = np.where(rng.uniform(size=(b, h, w, 1)) < 0.16,
+                          rng.uniform(2.0, 80.0, size=(b, h, w, 1)), 0.0).astype(np.float32)
+            batch.update(depth=gt, input_depth=np.where(
+                rng.uniform(size=gt.shape) < 0.25, gt, 0.0).astype(np.float32))
+        batches.append(batch)
+    return cfg, batches, compute_dtype(cfg)
+
+
+def _graph_and_eager(device, name, monkeypatch):
+    """The same model twice from one seed, each with ``make_optimizer``'s
+    capturable Adam: a step that captures its graph, and the eager step
+    (``captures_graph`` turned off while it is built), both with the flip
+    drawn from a generator of one seed."""
+    from packnet_sfm_tpu_torch.engine import train
+    from packnet_sfm_tpu_torch.engine.factory import make_optimizer, setup_model
+
+    cfg, batches, dtype = _graph_case(device, name)
+    out = []
+    for graphed in (True, False):
+        model = setup_model(cfg.model, device=device, seed=0, dtype=dtype)
+        optimizer, scheduler = make_optimizer(model, cfg.model.optimizer, cfg.model.scheduler, 1)
+        assert train.captures_graph(device, model, optimizer)
+        with monkeypatch.context() as patch:
+            if not graphed:
+                patch.setattr(train, "captures_graph", lambda *args: False)
+            step = train.make_train_step(model, optimizer, scheduler,
+                                         generator=torch.Generator().manual_seed(0),
+                                         compute_dtype=dtype or torch.float32)
+        out.append((model, optimizer, scheduler, step, train.zero_metrics(device)))
+    return out, batches
+
+
+def _flat(tensors):
+    return torch.cat([t.detach().double().ravel() for t in tensors])
+
+
+def _cos(a, b):
+    return (a @ b / a.norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("name", ["packnet01", "san"])
+def test_graphed_steps_match_eager_steps(device, name, monkeypatch):
+    import numpy as np
+
+    from packnet_sfm_tpu_torch.engine import spans
+
+    torch.backends.cudnn.allow_tf32 = name == "packnet01"   # as the cells run them
+    (graphed, eager), batches = _graph_and_eager(device, name, monkeypatch)
+    start = _flat(p for p in graphed[0].parameters())
+    assert torch.equal(start, _flat(p for p in eager[0].parameters()))
+    losses, first = {}, {}
+    for label, (model, optimizer, scheduler, step, acc) in (("graph", graphed),
+                                                             ("eager", eager)):
+        losses[label] = []
+        with spans.recording() as records:
+            for i, batch in enumerate(batches):
+                before = float(acc["loss"][0])
+                step(acc, batch)
+                losses[label].append(float(acc["loss"][0]) - before)
+                if i == 0:
+                    first[label] = _flat(optimizer.state[p]["exp_avg"]
+                                         for p in model.parameters() if p in optimizer.state)
+        assert [r.counters["graph_replays"] for r in records] == \
+            ([1, 1, 1] if label == "graph" else [0, 0, 0])
+    print(name, "losses graph", losses["graph"], "eager", losses["eager"])
+    np.testing.assert_allclose(losses["graph"][0], losses["eager"][0], rtol=1e-5)
+    np.testing.assert_allclose(losses["graph"], losses["eager"], rtol=1e-4)
+    # the first step's moment is the first gradient, from the same weights
+    print(name, "first exp_avg cosine", _cos(first["graph"], first["eager"]))
+    assert _cos(first["graph"], first["eager"]) >= 0.999
+    assert abs((first["graph"].norm() / first["eager"].norm()).item() - 1) <= 1e-3
+    g_model, g_opt = graphed[:2]
+    e_model, e_opt = eager[:2]
+    update_g = _flat(g_model.parameters()) - start
+    update_e = _flat(e_model.parameters()) - start
+    print(name, "update cosine", _cos(update_g, update_e),
+          "norm ratio", (update_g.norm() / update_e.norm()).item())
+    assert _cos(update_g, update_e) >= 0.999
+    assert abs((update_g.norm() / update_e.norm()).item() - 1) <= 1e-3
+    params_g, params_e = list(g_model.parameters()), list(e_model.parameters())
+    assert [("exp_avg" in g_opt.state[p]) for p in params_g] == \
+        [("exp_avg" in e_opt.state[p]) for p in params_e]
+    for key in ("exp_avg", "exp_avg_sq"):
+        # after 3 steps: Adam's first updates (about lr sign(g)) turn the
+        # cards' rounding of near-zero gradients into other later gradients
+        a = _flat(g_opt.state[p][key] for p in params_g if p in g_opt.state)
+        b = _flat(e_opt.state[p][key] for p in params_e if p in e_opt.state)
+        print(name, key, "cosine", _cos(a, b), "norm ratio", (a.norm() / b.norm()).item())
+        assert _cos(a, b) >= 0.99 and abs((a.norm() / b.norm()).item() - 1) <= 5e-2
+    assert all(float(g_opt.state[p]["step"]) == 3 for p in params_g if p in g_opt.state)
+
+
+def test_a_replayed_step_does_not_synchronize(device, monkeypatch):
+    (graphed, _), batches = _graph_and_eager(device, "packnet01", monkeypatch)
+    _, _, _, step, acc = graphed
+    step(acc, batches[0])           # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(acc, batches[1])
+        step(acc, batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc["loss"]).all() and float(acc["loss"][1]) == 3
+
+
+def test_the_next_replay_reads_the_rate_written_before_it(device, monkeypatch):
+    (graphed, _), batches = _graph_and_eager(device, "san", monkeypatch)
+    model, optimizer, _, step, acc = graphed
+    step(acc, batches[0])
+    for group in optimizer.param_groups:
+        group["lr"].fill_(0.0)
+    before = _flat(model.parameters())
+    moments = _flat(optimizer.state[p]["exp_avg"] for p in model.parameters()
+                    if p in optimizer.state)
+    step(acc, batches[1])           # a rate of 0: Adam's moments move, the weights do not
+    torch.cuda.synchronize()
+    assert torch.equal(_flat(model.parameters()), before)
+    assert not torch.equal(_flat(optimizer.state[p]["exp_avg"] for p in model.parameters()
+                                 if p in optimizer.state), moments)
+    for group in optimizer.param_groups:
+        group["lr"].fill_(2e-4)
+    step(acc, batches[2])
+    torch.cuda.synchronize()
+    assert not torch.equal(_flat(model.parameters()), before)
+
+
+def test_a_batch_of_other_shapes_takes_the_eager_step(device, monkeypatch):
+    from packnet_sfm_tpu_torch.engine import spans
+
+    (graphed, _), batches = _graph_and_eager(device, "packnet01", monkeypatch)
+    model, optimizer, _, step, acc = graphed
+    half = {k: [c[:2] for c in v] if isinstance(v, list) else v[:2]
+            for k, v in batches[1].items()}
+    with spans.recording() as records:
+        for batch in (batches[0], half, batches[2]):
+            step(acc, batch)
+    torch.cuda.synchronize()
+    assert [r.counters["graph_replays"] for r in records] == [1, 0, 1]
+    # the eager step and the replays launch the same hand-written kernels
+    assert [r.counters["warp_fwd_bf16"] for r in records] == [4, 4, 4]
+    wgrad = [r.counters["channel_conv3d_wgrad"] for r in records]
+    assert wgrad == [wgrad[1]] * 3 and wgrad[1] > 0
+    assert [r.counters["pageable_copies"] for r in records] == [0, 5, 0]
+    assert float(acc["loss"][1]) == 3 and torch.isfinite(acc["loss"]).all()
+    assert all(float(optimizer.state[p]["step"]) == 3 for p in model.parameters()
+               if p in optimizer.state)
